@@ -1,0 +1,335 @@
+"""DFINETransformer decoder, eval path (port of
+``dfine_tpu/models/decoder.py``): top-k query selection, ``eval_idx + 1``
+decoder layers of self-attention + deformable cross-attention + gate + FFN,
+the FDR integral with distance2bbox, LQE, and the mask pixel decoder.
+
+The CDN branch and the train outputs wait for the train-step slice; their
+parameters (``denoising_class_embed``, the per-layer score heads and LQEs)
+exist so that ``state_dict()`` has the reference key layout. Submodule names
+follow the reference (uc-vision) layout, which
+``dfine_tpu.utils.checkpoint.torch_key_to_flax`` translates.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.boxes import inverse_sigmoid
+from ..ops.deform_attn import ms_deform_attn
+from ..ops.fdr import distance2bbox, integral, weighting_function
+from .layers import MLP, BatchNorm2d, LayerNorm, MultiHeadSelfAttention, get_activation
+
+
+def bias_init_with_prob(prior: float) -> float:
+    return float(-math.log((1 - prior) / prior))
+
+
+def generate_anchors(spatial_shapes: Sequence[Tuple[int, int]], grid_size: float = 0.05,
+                     eps: float = 1e-2):
+    """Per-level anchors in logit space, +inf where invalid. Returns numpy
+    (anchors [1, sumHW, 4] f32, valid [1, sumHW, 1] bool)."""
+    anchors = []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        xy = (np.stack([gx, gy], -1).astype(np.float32) + 0.5) / np.array([w, h], np.float32)
+        wh = np.full_like(xy, grid_size * (2.0**lvl))
+        anchors.append(np.concatenate([xy, wh], -1).reshape(-1, 4))
+    a = np.concatenate(anchors, 0)[None]
+    valid = ((a > eps) & (a < 1 - eps)).all(-1, keepdims=True)
+    a = np.log(a / (1 - a))
+    return np.where(valid, a, np.inf).astype(np.float32), valid
+
+
+def offsets_bias_init(num_heads: int, num_points_list: Sequence[int]) -> np.ndarray:
+    """Radial grid init of the sampling-offset biases."""
+    thetas = np.arange(num_heads, dtype=np.float32) * (2.0 * np.pi / num_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)
+    grid = grid / np.abs(grid).max(-1, keepdims=True)
+    total = sum(num_points_list)
+    grid = np.tile(grid.reshape(num_heads, 1, 2), (1, total, 1))
+    scaling = np.concatenate([np.arange(1, n + 1) for n in num_points_list]).reshape(1, -1, 1)
+    return (grid * scaling).reshape(-1).astype(np.float32)
+
+
+class MSDeformableAttention(nn.Module):
+    """Query-conditioned multi-scale deformable attention (no value/output
+    projections). The core always goes through ``MSDeformAttnCore``."""
+
+    def __init__(self, embed_dim, num_heads, num_points_list, offset_scale=0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_points_list = tuple(num_points_list)
+        self.offset_scale = offset_scale
+        total_p = sum(self.num_points_list)
+        self.sampling_offsets = nn.Linear(embed_dim, total_p * num_heads * 2)
+        self.attention_weights = nn.Linear(embed_dim, total_p * num_heads)
+        self._scale_cache: Dict[str, torch.Tensor] = {}
+
+    def init_special_(self, generator=None):
+        nn.init.zeros_(self.sampling_offsets.weight)
+        with torch.no_grad():
+            self.sampling_offsets.bias.copy_(torch.from_numpy(
+                offsets_bias_init(self.num_heads, self.num_points_list)))
+        nn.init.zeros_(self.attention_weights.weight)
+        nn.init.zeros_(self.attention_weights.bias)
+
+    def _np_scale(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._scale_cache:
+            s = [1.0 / n for n in self.num_points_list for _ in range(n)]
+            with torch.inference_mode(False):  # usable by autograd after serving
+                self._scale_cache[key] = torch.tensor(s, dtype=torch.float32, device=device)
+        return self._scale_cache[key]
+
+    def forward(self, query, reference_points, value, spatial_shapes):
+        """query [B,Q,C], reference_points [B,Q,4] cxcywh, value [B,sumHW,nhead,d]."""
+        b, q = query.shape[:2]
+        total_p = sum(self.num_points_list)
+        offsets = self.sampling_offsets(query).reshape(b, q, self.num_heads, total_p, 2)
+        attn = self.attention_weights(query).reshape(b, q, self.num_heads, total_p)
+        attn = attn.float().softmax(-1)
+        ref = reference_points.float()
+        off = (offsets.float() * self._np_scale(query.device)[:, None]
+               * ref[:, :, None, None, 2:] * self.offset_scale)
+        loc = ref[:, :, None, None, :2] + off  # [B,Q,H,P,2]
+        out = ms_deform_attn(value, spatial_shapes, loc.contiguous(), attn.contiguous(),
+                             self.num_points_list)
+        return out.to(query.dtype)
+
+
+class Gate(nn.Module):
+    """Gated fusion of the self and cross features, then LayerNorm."""
+
+    def __init__(self, d_model):
+        super().__init__()
+        self.d_model = d_model
+        self.gate = nn.Linear(2 * d_model, 2 * d_model)
+        self.norm = LayerNorm(d_model)
+
+    def init_special_(self, generator=None):
+        nn.init.zeros_(self.gate.weight)
+        nn.init.constant_(self.gate.bias, bias_init_with_prob(0.5))
+
+    def forward(self, x1, x2):
+        gates = torch.sigmoid(self.gate(torch.cat([x1, x2], -1)))
+        g1, g2 = gates[..., : self.d_model], gates[..., self.d_model :]
+        return self.norm(g1 * x1 + g2 * x2)
+
+
+class LQE(nn.Module):
+    """Location quality estimator: corner-distribution statistics refine the
+    class scores."""
+
+    def __init__(self, k, hidden_dim, num_layers, reg_max):
+        super().__init__()
+        self.k, self.reg_max = k, reg_max
+        self.reg_conf = MLP(4 * (k + 1), hidden_dim, 1, num_layers)
+
+    def init_special_(self, generator=None):
+        nn.init.zeros_(self.reg_conf.layers[-1].weight)
+        nn.init.zeros_(self.reg_conf.layers[-1].bias)
+
+    def forward(self, scores, pred_corners):
+        b, l = pred_corners.shape[:2]
+        prob = pred_corners.reshape(b, l, 4, self.reg_max + 1).float().softmax(-1)
+        topk = prob.topk(self.k, dim=-1).values
+        stat = torch.cat([topk, topk.mean(-1, keepdim=True)], -1)
+        return scores + self.reg_conf(stat.reshape(b, l, -1).to(scores.dtype))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-attn + deformable cross-attn + gate + FFN."""
+
+    def __init__(self, d_model, n_head, dim_feedforward, num_points_list, activation="relu"):
+        super().__init__()
+        self.self_attn = MultiHeadSelfAttention(d_model, n_head)
+        self.norm1 = LayerNorm(d_model)
+        self.cross_attn = MSDeformableAttention(d_model, n_head, num_points_list)
+        self.gateway = Gate(d_model)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.act = get_activation(activation)
+
+    def init_special_(self, generator=None):
+        for lin in (self.linear1, self.linear2):
+            nn.init.xavier_uniform_(lin.weight, generator=generator)
+
+    def forward(self, target, ref_points, value, spatial_shapes, query_pos):
+        q = k = target + query_pos
+        target = self.norm1(target + self.self_attn(q, k, target))
+        t2 = self.cross_attn(target + query_pos, ref_points, value, spatial_shapes)
+        target = self.gateway(target, t2)
+        target = target + self.linear2(self.act(self.linear1(target)))
+        return self.norm3(target.clamp(-65504, 65504))
+
+
+class TransformerDecoder(nn.Module):
+    """Holds the decoder layers and their LQEs (the reference's
+    ``decoder.decoder`` key prefix)."""
+
+    def __init__(self, hidden_dim, nhead, dim_feedforward, num_points, num_layers, reg_max,
+                 activation="relu"):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(hidden_dim, nhead, dim_feedforward, num_points, activation)
+            for _ in range(num_layers))
+        self.lqe_layers = nn.ModuleList(LQE(4, 64, 2, reg_max) for _ in range(num_layers))
+
+
+class MaskPixelDecoder(nn.Module):
+    """FPN maps + encoder memory -> mask features at twice the resolution of
+    the first level (stride 4 at s/m/l/x)."""
+
+    def __init__(self, in_channels: Sequence[int], enc_channels: int, out_ch: int = 256):
+        super().__init__()
+        self.lateral = nn.ModuleList(nn.Conv2d(c, out_ch, 1, bias=False) for c in in_channels)
+        self.bn = nn.ModuleList(BatchNorm2d(out_ch) for _ in in_channels)
+        self.enc_proj = nn.Conv2d(enc_channels, out_ch, 1, bias=False)
+        self.enc_bn = BatchNorm2d(out_ch)
+        self.upconv = nn.ConvTranspose2d(out_ch, out_ch, 2, stride=2, bias=False)
+        self.bn1 = BatchNorm2d(out_ch)
+
+    def forward(self, feats: List[torch.Tensor], enc_feat: torch.Tensor) -> torch.Tensor:
+        x = self.bn[0](self.lateral[0](feats[0]))
+        size = x.shape[-2:]
+        for i in range(1, len(feats)):
+            t = self.bn[i](self.lateral[i](feats[i]))
+            x = x + F.interpolate(t, size=size, mode="bilinear", align_corners=False)
+        e = self.enc_bn(self.enc_proj(enc_feat))
+        x = x + F.interpolate(e, size=size, mode="bilinear", align_corners=False)
+        return F.relu(self.bn1(self.upconv(x)))
+
+
+class DFINETransformer(nn.Module):
+    def __init__(self, num_classes=80, hidden_dim=256, num_queries=300,
+                 feat_channels: Sequence[int] = (256, 256, 256), num_levels=3,
+                 num_points: Sequence[int] = (3, 6, 3), nhead=8, num_layers=6,
+                 dim_feedforward=1024, activation="relu", num_denoising=100, eval_idx=-1,
+                 eps=1e-2, query_select_method="default", reg_max=32, reg_scale=4.0, up=0.5,
+                 enable_mask_head=False, mask_dim=256, layer_scale=1):
+        super().__init__()
+        if query_select_method != "default":
+            raise NotImplementedError("only the 'default' query selection is ported")
+        if layer_scale != 1:
+            raise NotImplementedError("layer_scale != 1 is not ported")
+        if num_levels != len(feat_channels):
+            raise NotImplementedError("extra pyramid levels are not ported")
+        hd = hidden_dim
+        self.num_classes, self.hidden_dim, self.num_queries = num_classes, hd, num_queries
+        self.nhead, self.num_layers, self.eps = nhead, num_layers, eps
+        self.eval_idx = eval_idx if eval_idx >= 0 else num_layers + eval_idx
+        self.reg_max, self.reg_scale, self.up = reg_max, float(reg_scale), float(up)
+        self.enable_mask_head = enable_mask_head
+
+        self.input_proj = nn.ModuleList(
+            nn.Identity() if c == hd else nn.Sequential(OrderedDict(
+                conv=nn.Conv2d(c, hd, 1, bias=False), norm=BatchNorm2d(hd)))
+            for c in feat_channels)
+        self.decoder = TransformerDecoder(hd, nhead, dim_feedforward, num_points, num_layers,
+                                          reg_max, activation)
+        if num_denoising > 0:
+            self.denoising_class_embed = nn.Embedding(num_classes + 1, hd, padding_idx=num_classes)
+        self.enc_output = nn.Sequential(OrderedDict(proj=nn.Linear(hd, hd), norm=LayerNorm(hd)))
+        self.enc_score_head = nn.Linear(hd, num_classes)
+        self.enc_bbox_head = MLP(hd, hd, 4, 3)
+        self.query_pos_head = MLP(4, 2 * hd, hd, 2)
+        self.pre_bbox_head = MLP(hd, hd, 4, 3)
+        self.dec_score_head = nn.ModuleList(nn.Linear(hd, num_classes) for _ in range(num_layers))
+        self.dec_bbox_head = nn.ModuleList(
+            MLP(hd, hd, 4 * (reg_max + 1), 3) for _ in range(num_layers))
+        if enable_mask_head:
+            # the FPN maps come from the encoder, wider than the decoder at size x
+            self.pixel_decoder = MaskPixelDecoder(feat_channels, hd, mask_dim)
+            self.mask_head = MLP(hd, hd, mask_dim, 3)
+        self._const_cache: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+
+    def init_special_(self, generator=None):
+        """The JAX package's initializers where they differ from torch's."""
+        cls_bias = bias_init_with_prob(0.01)
+        for proj in self.input_proj:
+            if not isinstance(proj, nn.Identity):
+                nn.init.xavier_uniform_(proj.conv.weight, generator=generator)
+        nn.init.xavier_uniform_(self.enc_output.proj.weight, generator=generator)
+        for head in [self.enc_score_head, *self.dec_score_head]:
+            nn.init.constant_(head.bias, cls_bias)
+        for mlp in [self.enc_bbox_head, self.pre_bbox_head, *self.dec_bbox_head]:
+            nn.init.zeros_(mlp.layers[-1].weight)
+            nn.init.zeros_(mlp.layers[-1].bias)
+        for lin in self.query_pos_head.layers:
+            nn.init.xavier_uniform_(lin.weight, generator=generator)
+
+    def _constants(self, spatial_shapes, device):
+        """(anchors, valid mask, FDR projection) for these shapes, cached."""
+        key = (tuple(spatial_shapes), str(device))
+        if key not in self._const_cache:
+            anchors, valid = generate_anchors(spatial_shapes, eps=self.eps)
+            project = weighting_function(self.reg_max, self.up, self.reg_scale)
+            with torch.inference_mode(False):  # usable by autograd after serving
+                self._const_cache[key] = (
+                    torch.from_numpy(anchors).to(device), torch.from_numpy(valid).to(device),
+                    torch.tensor(project, dtype=torch.float32, device=device))
+        return self._const_cache[key]
+
+    def forward(self, feats: List[torch.Tensor], inner_feats: List[torch.Tensor]):
+        b = feats[0].shape[0]
+        hd = self.hidden_dim
+        proj = [p(f) for p, f in zip(self.input_proj, feats)]
+        spatial_shapes = tuple((int(p.shape[2]), int(p.shape[3])) for p in proj)
+        memory = torch.cat([p.flatten(2).transpose(1, 2) for p in proj], 1)  # [B,S,C]
+        anchors, valid, project = self._constants(spatial_shapes, memory.device)
+        memory = valid.to(memory.dtype) * memory
+
+        out_mem = self.enc_output(memory)
+        enc_logits = self.enc_score_head(out_mem)
+        num_q = min(self.num_queries, enc_logits.shape[1])
+        topk_ind = enc_logits.max(-1).values.topk(num_q, dim=1).indices  # [B, Q]
+
+        def gather_q(x):
+            return torch.gather(x, 1, topk_ind[..., None].expand(-1, -1, x.shape[-1]))
+
+        topk_memory = gather_q(out_mem)
+        topk_anchors = gather_q(anchors.expand(b, -1, -1))
+        ref_unact = (self.enc_bbox_head(topk_memory) + topk_anchors).detach()
+
+        value = memory.reshape(b, memory.shape[1], self.nhead, hd // self.nhead)
+        output = topk_memory.detach()
+        output_detach = torch.zeros_like(output)
+        pred_corners_undetach = 0.0
+        ref_points_detach = torch.sigmoid(ref_unact)
+        ref_points_initial = pre_scores = scores = None
+        dtype = output.dtype
+        for i in range(self.eval_idx + 1):
+            query_pos = self.query_pos_head(ref_points_detach.to(dtype)).clamp(-10, 10)
+            output = self.decoder.layers[i](output, ref_points_detach, value, spatial_shapes,
+                                            query_pos)
+            if i == 0:
+                pre_unact = self.pre_bbox_head(output) + inverse_sigmoid(ref_points_detach)
+                ref_points_initial = torch.sigmoid(pre_unact).detach()
+                pre_scores = self.dec_score_head[0](output)
+            pred_corners = self.dec_bbox_head[i](output + output_detach) + pred_corners_undetach
+            inter_ref_bbox = distance2bbox(ref_points_initial,
+                                           integral(pred_corners, project, self.reg_max),
+                                           self.reg_scale)
+            if i == self.eval_idx:
+                scores = pre_scores if i == 0 else self.dec_score_head[i](output)
+                scores = self.decoder.lqe_layers[i](scores, pred_corners)
+            pred_corners_undetach = pred_corners
+            ref_points_detach = inter_ref_bbox.detach()
+            output_detach = output.detach()
+
+        out = {"pred_logits": scores, "pred_boxes": inter_ref_bbox}
+        if self.enable_mask_head:
+            h0, w0 = spatial_shapes[0]
+            mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0)
+            mask_feat = self.pixel_decoder(inner_feats, mem0)
+            masks = torch.einsum("bqc,bchw->bqhw", self.mask_head(output), mask_feat)
+            out["pred_masks"] = torch.sigmoid(masks)
+        return out
