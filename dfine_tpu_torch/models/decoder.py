@@ -1,12 +1,16 @@
-"""DFINETransformer decoder, eval path (port of
-``dfine_tpu/models/decoder.py``): top-k query selection, ``eval_idx + 1``
-decoder layers of self-attention + deformable cross-attention + gate + FFN,
-the FDR integral with distance2bbox, LQE, and the mask pixel decoder.
+"""DFINETransformer decoder (port of ``dfine_tpu/models/decoder.py``): top-k
+query selection, decoder layers of self-attention + deformable
+cross-attention + gate + FFN, the FDR integral with distance2bbox, LQE, and
+the mask pixel decoder.
 
-The CDN branch and the train outputs wait for the train-step slice; their
-parameters (``denoising_class_embed``, the per-layer score heads and LQEs)
-exist so that ``state_dict()`` has the reference key layout. Submodule names
-follow the reference (uc-vision) layout, which
+Eval mode runs ``eval_idx + 1`` layers and returns the last layer's
+outputs. Train mode (``self.training``) runs all ``num_layers`` layers and
+returns the sets the criterion supervises (decoder.py:390-729): the final
+layer, ``aux_outputs``, ``pre_outputs``, ``enc_aux_outputs`` and, when
+targets are given, the contrastive-denoising queries' ``dn_outputs``,
+``dn_pre_outputs`` and ``dn_meta``. The lazy per-set mask embeddings of the
+segment train step wait for the next slice: train mode raises with the
+mask head. Submodule names follow the reference (uc-vision) layout, which
 ``dfine_tpu.utils.checkpoint.torch_key_to_flax`` translates.
 """
 
@@ -14,7 +18,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from ..ops.boxes import inverse_sigmoid
 from ..ops.deform_attn import ms_deform_attn
 from ..ops.fdr import distance2bbox, integral, weighting_function
+from .denoising import CdnNoise, build_cdn_queries, dn_attn_mask, draw_cdn_noise
 from .layers import MLP, BatchNorm2d, LayerNorm, MultiHeadSelfAttention, get_activation
 
 
@@ -162,9 +167,9 @@ class TransformerDecoderLayer(nn.Module):
         for lin in (self.linear1, self.linear2):
             nn.init.xavier_uniform_(lin.weight, generator=generator)
 
-    def forward(self, target, ref_points, value, spatial_shapes, query_pos):
+    def forward(self, target, ref_points, value, spatial_shapes, query_pos, attn_mask=None):
         q = k = target + query_pos
-        target = self.norm1(target + self.self_attn(q, k, target))
+        target = self.norm1(target + self.self_attn(q, k, target, attn_mask))
         t2 = self.cross_attn(target + query_pos, ref_points, value, spatial_shapes)
         target = self.gateway(target, t2)
         target = target + self.linear2(self.act(self.linear1(target)))
@@ -214,7 +219,8 @@ class DFINETransformer(nn.Module):
                  num_points: Sequence[int] = (3, 6, 3), nhead=8, num_layers=6,
                  dim_feedforward=1024, activation="relu", num_denoising=100, eval_idx=-1,
                  eps=1e-2, query_select_method="default", reg_max=32, reg_scale=4.0, up=0.5,
-                 enable_mask_head=False, mask_dim=256, layer_scale=1):
+                 enable_mask_head=False, mask_dim=256, layer_scale=1, label_noise_ratio=0.5,
+                 box_noise_scale=1.0):
         super().__init__()
         if query_select_method != "default":
             raise NotImplementedError("only the 'default' query selection is ported")
@@ -228,6 +234,8 @@ class DFINETransformer(nn.Module):
         self.eval_idx = eval_idx if eval_idx >= 0 else num_layers + eval_idx
         self.reg_max, self.reg_scale, self.up = reg_max, float(reg_scale), float(up)
         self.enable_mask_head = enable_mask_head
+        self.num_denoising = num_denoising
+        self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
 
         self.input_proj = nn.ModuleList(
             nn.Identity() if c == hd else nn.Sequential(OrderedDict(
@@ -278,7 +286,41 @@ class DFINETransformer(nn.Module):
                     torch.tensor(project, dtype=torch.float32, device=device))
         return self._const_cache[key]
 
-    def forward(self, feats: List[torch.Tensor], inner_feats: List[torch.Tensor]):
+    def _dn_mask(self, num_group, max_gt, device) -> torch.Tensor:
+        key = ("dn", num_group, max_gt, str(device))
+        if key not in self._const_cache:
+            keep = dn_attn_mask(num_group, max_gt, self.num_queries)
+            self._const_cache[key] = torch.from_numpy(keep).to(device)
+        return self._const_cache[key]
+
+    def _cdn(self, targets, dn_noise: Optional[CdnNoise], generator, dtype):
+        """The CDN queries of a train step: (content [B, D, C], reference
+        logits [B, D, 4], keep-mask [T, T], meta)."""
+        labels, boxes, valid = targets["labels"], targets["boxes"], targets["valid"]
+        if dn_noise is None:
+            dn_noise = draw_cdn_noise(labels.shape[0], labels.shape[1], self.num_classes,
+                                      self.num_denoising, self.label_noise_ratio, generator,
+                                      device=labels.device)
+        dn_cls, dn_bbox_unact, meta = build_cdn_queries(
+            labels, boxes, valid, dn_noise, self.num_classes, self.num_denoising,
+            self.label_noise_ratio, self.box_noise_scale)
+        # the padding row contributes zeros (decoder.py:423-424)
+        dn_content = torch.where((dn_cls == self.num_classes)[..., None], 0.0,
+                                 self.denoising_class_embed(dn_cls)).to(dtype)
+        return dn_content, dn_bbox_unact, self._dn_mask(meta.num_group, meta.max_gt,
+                                                        labels.device), meta
+
+    def forward(self, feats: List[torch.Tensor], inner_feats: List[torch.Tensor],
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                dn_noise: Optional[CdnNoise] = None,
+                generator: Optional[torch.Generator] = None):
+        """``targets`` (train mode only: labels [B, G], boxes [B, G, 4]
+        cxcywh, valid [B, G]) turn on the CDN queries, whose noise is
+        ``dn_noise`` or drawn from ``generator``."""
+        train = self.training
+        if train and self.enable_mask_head:
+            raise NotImplementedError("the segment train step (lazy per-set mask embeddings) "
+                                      "is not ported yet")
         b = feats[0].shape[0]
         hd = self.hidden_dim
         proj = [p(f) for p, f in zip(self.input_proj, feats)]
@@ -297,39 +339,79 @@ class DFINETransformer(nn.Module):
 
         topk_memory = gather_q(out_mem)
         topk_anchors = gather_q(anchors.expand(b, -1, -1))
-        ref_unact = (self.enc_bbox_head(topk_memory) + topk_anchors).detach()
+        enc_bbox_unact = self.enc_bbox_head(topk_memory) + topk_anchors
+        ref_unact = enc_bbox_unact.detach()
+        output = topk_memory.detach()
+
+        attn_mask = dn_meta = None
+        if train and self.num_denoising > 0 and targets is not None:
+            if memory.shape[1] < self.num_queries:
+                raise ValueError(f"training canvas too small: {memory.shape[1]} anchors < "
+                                 f"{self.num_queries} queries")
+            dn_content, dn_unact, attn_mask, dn_meta = self._cdn(targets, dn_noise, generator,
+                                                                 output.dtype)
+            ref_unact = torch.cat([dn_unact.to(ref_unact.dtype), ref_unact], 1)
+            output = torch.cat([dn_content, output], 1)
 
         value = memory.reshape(b, memory.shape[1], self.nhead, hd // self.nhead)
-        output = topk_memory.detach()
         output_detach = torch.zeros_like(output)
         pred_corners_undetach = 0.0
         ref_points_detach = torch.sigmoid(ref_unact)
-        ref_points_initial = pre_scores = scores = None
+        ref_points_initial = pre_scores = pre_bboxes = None
         dtype = output.dtype
-        for i in range(self.eval_idx + 1):
+        dec_logits, dec_boxes, dec_corners, dec_refs = [], [], [], []
+        for i in range(self.num_layers if train else self.eval_idx + 1):
             query_pos = self.query_pos_head(ref_points_detach.to(dtype)).clamp(-10, 10)
             output = self.decoder.layers[i](output, ref_points_detach, value, spatial_shapes,
-                                            query_pos)
+                                            query_pos, attn_mask)
             if i == 0:
                 pre_unact = self.pre_bbox_head(output) + inverse_sigmoid(ref_points_detach)
-                ref_points_initial = torch.sigmoid(pre_unact).detach()
+                pre_bboxes = torch.sigmoid(pre_unact)
+                ref_points_initial = pre_bboxes.detach()
                 pre_scores = self.dec_score_head[0](output)
             pred_corners = self.dec_bbox_head[i](output + output_detach) + pred_corners_undetach
             inter_ref_bbox = distance2bbox(ref_points_initial,
                                            integral(pred_corners, project, self.reg_max),
                                            self.reg_scale)
-            if i == self.eval_idx:
+            if train or i == self.eval_idx:
                 scores = pre_scores if i == 0 else self.dec_score_head[i](output)
-                scores = self.decoder.lqe_layers[i](scores, pred_corners)
+                dec_logits.append(self.decoder.lqe_layers[i](scores, pred_corners))
+                dec_boxes.append(inter_ref_bbox)
+                dec_corners.append(pred_corners)
+                dec_refs.append(ref_points_initial)
             pred_corners_undetach = pred_corners
             ref_points_detach = inter_ref_bbox.detach()
             output_detach = output.detach()
 
-        out = {"pred_logits": scores, "pred_boxes": inter_ref_bbox}
-        if self.enable_mask_head:
-            h0, w0 = spatial_shapes[0]
-            mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0)
-            mask_feat = self.pixel_decoder(inner_feats, mem0)
-            masks = torch.einsum("bqc,bchw->bqhw", self.mask_head(output), mask_feat)
-            out["pred_masks"] = torch.sigmoid(masks)
+        if not train:
+            out = {"pred_logits": dec_logits[-1], "pred_boxes": dec_boxes[-1]}
+            if self.enable_mask_head:
+                h0, w0 = spatial_shapes[0]
+                mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0)
+                mask_feat = self.pixel_decoder(inner_feats, mem0)
+                masks = torch.einsum("bqc,bchw->bqhw", self.mask_head(output), mask_feat)
+                out["pred_masks"] = torch.sigmoid(masks)
+            return out
+
+        d = dn_meta.num_denoising if dn_meta is not None else 0
+
+        def sets(logits, boxes, corners, refs, part):
+            return [{"pred_logits": lg[:, part], "pred_boxes": bx[:, part],
+                     "pred_corners": cr[:, part], "ref_points": rf[:, part]}
+                    for lg, bx, cr, rf in zip(logits, boxes, corners, refs)]
+
+        main = sets(dec_logits, dec_boxes, dec_corners, dec_refs, slice(d, None))
+        out = dict(main[-1])
+        out["aux_outputs"] = main[:-1]
+        out["enc_aux_outputs"] = [{"pred_logits": gather_q(enc_logits),
+                                   "pred_boxes": torch.sigmoid(enc_bbox_unact)}]
+        out["pre_outputs"] = {"pred_logits": pre_scores[:, d:], "pred_boxes": pre_bboxes[:, d:]}
+        out["enc_meta"] = {"class_agnostic": False}
+        if dn_meta is not None:
+            out["dn_outputs"] = sets(dec_logits, dec_boxes, dec_corners, dec_refs, slice(0, d))
+            out["dn_pre_outputs"] = {"pred_logits": pre_scores[:, :d],
+                                     "pred_boxes": pre_bboxes[:, :d]}
+            out["dn_meta"] = {"dn_num_group": dn_meta.num_group,
+                              "dn_num_split": (dn_meta.num_denoising, self.num_queries),
+                              "max_gt": dn_meta.max_gt}
         return out

@@ -4,7 +4,7 @@ and ``build_model``."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -12,6 +12,7 @@ import torch.nn as nn
 from ..configs import model_config
 from ..device import resolve_device
 from .decoder import DFINETransformer
+from .denoising import CdnNoise
 from .hgnetv2 import HGNetv2
 from .hybrid_encoder import HybridEncoder
 from .layers import FP32_MODULES, LearnableAffine, MultiHeadSelfAttention
@@ -45,18 +46,26 @@ class DFINE(nn.Module):
             eval_idx=dcfg["eval_idx"], query_select_method=dcfg["query_select_method"],
             reg_max=dcfg["reg_max"], reg_scale=dcfg["reg_scale"],
             enable_mask_head=enable_mask_head, mask_dim=dcfg["mask_dim"],
-            layer_scale=dcfg.get("layer_scale", 1))
+            layer_scale=dcfg.get("layer_scale", 1), label_noise_ratio=dcfg["label_noise_ratio"],
+            box_noise_scale=dcfg["box_noise_scale"])
 
     @property
     def dtype(self) -> torch.dtype:
         return self.backbone.stem.stem1.conv.weight.dtype
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None,
+                dn_noise: Optional[CdnNoise] = None,
+                generator: Optional[torch.Generator] = None):
+        """Eval mode: the serving outputs. Train mode (``model.train()``):
+        the criterion's sets (see ``DFINETransformer``); with ``targets``
+        (labels [B, G], boxes [B, G, 4] cxcywh, valid [B, G]) also the CDN
+        queries, their noise given as ``dn_noise`` or drawn from
+        ``generator``."""
         if not x.is_floating_point():  # uint8 frames
             x = x.float() / 255.0
         feats = self.backbone(x.to(self.dtype))
         outs, inner_outs = self.encoder(feats)
-        return self.decoder(outs, inner_outs)
+        return self.decoder(outs, inner_outs, targets, dn_noise, generator)
 
 
 @torch.no_grad()
@@ -105,7 +114,9 @@ def build_model(size: str, num_classes: int, enable_mask_head: bool = False,
                 dtype: torch.dtype = torch.float32,
                 device: Optional[Union[str, torch.device]] = None) -> DFINE:
     """An eval-mode DFINE of ``size`` with weights drawn from a generator
-    seeded with 0, on ``device`` (default: the card; raises without CUDA)."""
+    seeded with 0, on ``device`` (default: the card; raises without CUDA).
+    ``dtype`` casts the parameters, for serving; training keeps fp32
+    parameters and computes in bf16 under autocast (``train.train_step``)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = DFINE(size, num_classes, enable_mask_head)

@@ -37,10 +37,22 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm computed in fp32 (layers.py:136-144)."""
+    """BatchNorm computed in fp32 (layers.py:136-144), with flax's update of
+    the running statistics in ``train()`` mode: momentum 0.9 in flax's sense
+    (torch's ``momentum=0.1``) and the *biased* batch variance, where torch's
+    own BatchNorm stores the unbiased one."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        x32 = x.float()
+        if not self.training:
+            return super().forward(x32).to(x.dtype)
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -177,9 +189,9 @@ class MultiHeadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, q, k, v):
-        """q/k/v [B, L, C]. The attention mask of the CDN queries waits for
-        the train-step slice."""
+    def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
+        """q/k/v [B, L, C]; mask bool [.., L, L], True = may attend (the CDN
+        keep-mask, denoising.py:30-45)."""
         c, h = self.embed_dim, self.num_heads
         d = c // h
         w, b = self.in_proj_weight, self.in_proj_bias
@@ -190,6 +202,8 @@ class MultiHeadSelfAttention(nn.Module):
 
         wq, wk, wv = proj(q, 0), proj(k, 1), proj(v, 2)
         logits = torch.matmul(wq, wk.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
         attn = logits.softmax(-1).to(wv.dtype)
         out = torch.matmul(attn, wv).transpose(1, 2).reshape(q.shape[0], q.shape[1], c)
         return self.out_proj(out)

@@ -5,9 +5,17 @@
 ``MSDeformAttnCore`` is the op the model runs: its forward is the sampling
 kernel, its backward computes the location and attention gradients in
 closed form (the corner tables of deform_attn.py:235-241) and sends each
-level's value gradient through the ``rows_scatter_add`` kernel, as the
-``scatter_impl="pallas"`` backward of ``ms_deform_attn_core_fused`` does.
-On CPU tensors both kernels take their plain versions.
+level's value gradient through the scatter kernel that ``set_deform_bwd``
+chose, as ``ms_deform_attn_core_fused(scatter_impl=...)`` does:
+
+- ``"pallas"`` (the default): ``rows_scatter_add``, f32 payload;
+- ``"mxu"``: ``rows_scatter_add_mxu``, payload rounded once to bf16;
+- ``"tiled"``: ``rows_scatter_add_tiled``, the same bf16 payload, sorted,
+  deterministic.
+
+The JAX package's other settings are XLA formulations measured on the TPU,
+with no kernel; they are not ported and ``set_deform_bwd`` raises on them.
+On CPU tensors the kernels take their plain versions.
 """
 
 from __future__ import annotations
@@ -17,9 +25,27 @@ from typing import Sequence, Tuple
 import torch
 
 from .kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
-from .kernels.scatter_rows import rows_scatter_add
+from .kernels.scatter_rows import rows_scatter_add, rows_scatter_add_mxu, rows_scatter_add_tiled
 
 ms_deform_attn_core = ms_deform_attn_fwd_plain
+
+_SCATTERS = {"pallas": rows_scatter_add, "mxu": rows_scatter_add_mxu,
+             "tiled": rows_scatter_add_tiled}
+_DEFORM_BWD = "pallas"
+
+
+def set_deform_bwd(impl: str) -> None:
+    """Choose the value-gradient scatter of every ``MSDeformAttnCore``
+    forward run after this call (read at forward time, as the JAX package
+    reads it at trace time)."""
+    global _DEFORM_BWD
+    if impl not in _SCATTERS:
+        raise ValueError(f"unknown deform backward {impl!r}: use 'pallas', 'mxu' or 'tiled'")
+    _DEFORM_BWD = impl
+
+
+def deform_bwd_impl() -> str:
+    return _DEFORM_BWD
 
 # (dy, dx, weight, d weight / d fx, d weight / d fy) per bilinear corner
 _CORNER_TABLE = (
@@ -41,6 +67,7 @@ class MSDeformAttnCore(torch.autograd.Function):
         ctx.save_for_backward(value, loc, att)
         ctx.spatial_shapes = spatial_shapes
         ctx.num_points = num_points
+        ctx.scatter = _SCATTERS[_DEFORM_BWD]
         return ms_deform_attn_fwd(value, spatial_shapes, loc, att, num_points)
 
     @staticmethod
@@ -50,6 +77,8 @@ class MSDeformAttnCore(torch.autograd.Function):
         b, q = loc.shape[:2]
         nhead, d = value.shape[2], value.shape[3]
         f32 = torch.float32
+        # mxu/tiled: each contribution is rounded once to bf16 (scatter_rows.py:184, :282)
+        payload = f32 if ctx.scatter is rows_scatter_add else torch.bfloat16
         g = g_out.reshape(b, q, nhead, d).to(f32)
         att32 = att.to(f32)
         grad_loc = torch.zeros(loc.shape, dtype=f32, device=loc.device)
@@ -93,14 +122,14 @@ class MSDeformAttnCore(torch.autograd.Function):
                     idx_eff = torch.where(valid, idx, -1)
                     idx_parts.append(idx_eff.permute(0, 2, 1, 3).reshape(b * nhead, q * p))
                     contrib_parts.append(
-                        contrib.permute(0, 2, 1, 3, 4).reshape(b * nhead, q * p, d))
+                        contrib.permute(0, 2, 1, 3, 4).reshape(b * nhead, q * p, d).to(payload))
             grad_att[:, :, :, p_start : p_start + p] = ga_l
             grad_loc[:, :, :, p_start : p_start + p, 0] = a * gfx * w  # dx/du = W
             grad_loc[:, :, :, p_start : p_start + p, 1] = a * gfy * h
             if need_value:
                 idx_all = torch.cat(idx_parts, 1).to(torch.int32).contiguous()
                 contrib_all = torch.cat(contrib_parts, 1).contiguous()
-                gv = rows_scatter_add(idx_all, contrib_all, hw)  # [B*H, HW, D]
+                gv = ctx.scatter(idx_all, contrib_all, hw)  # [B*H, HW, D]
                 grad_val_parts.append(gv.reshape(b, nhead, hw, d).permute(0, 2, 1, 3))
             hw_start += hw
             p_start += p

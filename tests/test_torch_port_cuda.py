@@ -93,3 +93,80 @@ def test_core_backward_matches_autograd_of_plain(cuda):
     for name, ours, ref in zip(("value", "loc", "att"), *grads):
         scale = ref.abs().max().item() + 1e-9
         assert (ours - ref).abs().max().item() <= 2e-4 * scale, name
+
+
+@pytest.mark.parametrize("name", ["rows_scatter_add_mxu", "rows_scatter_add_tiled"])
+def test_bf16_scatter_kernels_match_plain(cuda, name):
+    """At the train step's shapes (m@640, B = 8, 500 queries): against the
+    bf16-rounded plain version at atol 1e-5, rtol 1e-6
+    (test_pallas_scatter.py:48, :165); all-dropped gives exact zeros; every
+    entry in one row agrees at atol 1e-3, rtol 1e-4 (a sum of 6000-12000
+    terms in another f32 order)."""
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    fn = getattr(sr, name)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for n, hw in ((6000, 6400), (12000, 1600), (6000, 400)):
+        idx = torch.randint(-1, hw, (64, n), device=cuda, generator=g, dtype=torch.int32)
+        contrib = torch.randn((64, n, 32), device=cuda, generator=g).bfloat16()
+        before = fn.launches
+        out = fn(idx, contrib, hw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(out, sr.rows_scatter_add_bf16_plain(idx, contrib, hw),
+                                   atol=1e-5, rtol=1e-6)
+        assert torch.count_nonzero(fn(torch.full_like(idx, -1), contrib, hw)).item() == 0
+        one = torch.full_like(idx, hw // 2)
+        torch.testing.assert_close(fn(one, contrib, hw),
+                                   sr.rows_scatter_add_bf16_plain(one, contrib, hw),
+                                   atol=1e-3, rtol=1e-4)
+    # an f32 payload is rounded once to bf16 by the wrapper
+    c32 = torch.randn((64, 6000, 32), device=cuda, generator=g)
+    idx = torch.randint(-1, 400, (64, 6000), device=cuda, generator=g, dtype=torch.int32)
+    torch.testing.assert_close(fn(idx, c32, 400), sr.rows_scatter_add_bf16_plain(idx, c32, 400),
+                               atol=1e-5, rtol=1e-6)
+
+
+def test_tiled_scatter_is_bit_equal_over_runs(cuda):
+    """The sorted segmented reduction has no atomics: repeated runs give
+    bit-equal output, also when thousands of entries share each row."""
+    from dfine_tpu_torch.ops.kernels.scatter_rows import rows_scatter_add_tiled
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    idx = torch.randint(-1, 1600, (64, 12000), device=cuda, generator=g, dtype=torch.int32)
+    contrib = torch.randn((64, 12000, 32), device=cuda, generator=g).bfloat16()
+    first = rows_scatter_add_tiled(idx, contrib, 1600)
+    assert all(torch.equal(first, rows_scatter_add_tiled(idx, contrib, 1600)) for _ in range(3))
+    few = torch.randint(0, 4, (64, 12000), device=cuda, generator=g, dtype=torch.int32)
+    assert torch.equal(rows_scatter_add_tiled(few, contrib, 400),
+                       rows_scatter_add_tiled(few, contrib, 400))
+
+
+@pytest.mark.parametrize("impl", ["mxu", "tiled"])
+def test_core_backward_through_bf16_scatters(cuda, impl):
+    """MSDeformAttnCore with set_deform_bwd(impl) against autograd of the
+    plain core: location and attention gradients within 2e-4 of the largest
+    (f32, as for the default), value gradients within rtol 5e-2, atol 2e-2
+    (test_pallas_scatter.py:139-141; the payload is rounded to bf16); the
+    chosen kernel launches once per level."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, 32, M_SHAPES, M_POINTS, torch.float32)
+    g_out = torch.randn((2, 300, 256), device=cuda)
+    kernel = getattr(sr, f"rows_scatter_add_{impl}")
+    grads = []
+    tda.set_deform_bwd(impl)
+    try:
+        before = kernel.launches
+        for fn in (tda.ms_deform_attn, tda.ms_deform_attn_core):
+            v, l, a = (t.clone().requires_grad_() for t in (value, loc, att))
+            (fn(v, M_SHAPES, l, a, M_POINTS) * g_out).sum().backward()
+            grads.append((v.grad, l.grad, a.grad))
+        assert kernel.launches == before + len(M_SHAPES)
+    finally:
+        tda.set_deform_bwd("pallas")
+    (gv, gl, ga), (rv, rl, ra) = grads
+    torch.testing.assert_close(gv, rv, rtol=5e-2, atol=2e-2)
+    for ours, ref in ((gl, rl), (ga, ra)):
+        assert (ours - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()

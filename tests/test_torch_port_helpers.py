@@ -84,3 +84,19 @@ def align_by_box(ref_boxes: np.ndarray, our_boxes: np.ndarray):
     dup = set(uniq[counts > 1].tolist())
     keep = np.asarray([m not in dup for m in match])
     return match, keep
+
+
+def jax_cdn_noise(key, batch, max_gt, num_classes, num_denoising=100, ratio=0.5):
+    """The four draws of dfine_tpu/models/denoising.py:79-92 from ``key``,
+    as the port's CdnNoise."""
+    from dfine_tpu_torch.models.denoising import CdnNoise
+
+    d = 2 * max(1, num_denoising // max_gt) * max_gt
+    k_label, k_new, k_sign, k_part = jax.random.split(key, 4)
+    flip = jax.random.uniform(k_label, (batch, d)) < ratio * 0.5
+    new_label = jax.random.randint(k_new, (batch, d), 0, num_classes, dtype=jnp.int32)
+    sign = jax.random.randint(k_sign, (batch, d, 4), 0, 2).astype(jnp.float32) * 2.0 - 1.0
+    part = jax.random.uniform(k_part, (batch, d, 4))
+    flip, new_label, sign, part = (torch.from_numpy(np.array(a))
+                                   for a in (flip, new_label, sign, part))
+    return CdnNoise(flip, new_label.long(), sign, part)
