@@ -14,7 +14,8 @@ Phases, each printed as one JSON line:
    version's, one PyTorch call's where one computes the same function, and
    the least time the card could take (bound). The three row scatter-adds
    (the value gradient of the deformable attention: ``rows_scatter_add``,
-   ``_mxu`` and ``_tiled``) run at the train step's shapes;
+   ``_mxu`` and ``_tiled``) run at the train step's shapes and at head dim
+   16, ``_tiled`` also bit for bit against its plain version on the CPU;
 3. model: the m det+seg model on the card, fp32, against the same weights
    on the CPU through the plain path;
 4. serving: ``TorchModel`` (m det+seg, bf16) answers 720p BGR frames, with
@@ -24,11 +25,14 @@ Phases, each printed as one JSON line:
 6. train: the m detect train step (``make_train_step``: CDN queries,
    Hungarian matching, criterion, AdamW, EMA) at 640 px, batch 8, bf16
    autocast over fp32 parameters, with its kernel launches counted per step;
-7. train_bwd_variants: one step each with ``set_deform_bwd("mxu")`` and
+7. scatter_in_situ: the three row scatter-adds and ``index_add_`` on the
+   inputs that one more train step gives the default backward, with how
+   their destinations cluster;
+8. train_bwd_variants: one step each with ``set_deform_bwd("mxu")`` and
    ``("tiled")`` against the default on the same weights, batch and noise,
    each parameter's gradient against its own default, beside two more
    default steps as the controls;
-8. train_parity: one fp32 step on the card against the same step on the CPU:
+9. train_parity: one fp32 step on the card against the same step on the CPU:
    losses, grad norm, the updated parameters and AdamW's first moment.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -109,6 +113,7 @@ PARITY_STEP_ATOL, PARITY_FAR_SHARE = 2e-6, 0.005  # see phase_train_parity
 # whole feature map, theirs (24 % at most; tensors 1.5 %).
 PARITY_MU_REL = {"tensor": 3e-2, "sampling_offsets": 0.1, "scalar": 0.5}
 GRAD_REL_TOL = 2e-4  # test_pallas_scatter.py:69-78
+TILE_ROWS = 128  # destination rows a CTA of csrc/rows_scatter_add_tile.cu (kTile)
 BOX_ATOL, MIN_MATCHED = 1e-3, 0.98
 MODEL_ATOL = 1e-4  # logits and masks of matched queries, fp32 card vs CPU
 
@@ -278,7 +283,28 @@ def phase_build(res):
     ptxas = {n: sorted({l.strip() for l in log.splitlines() if "registers" in l or "spill" in l})
              for n, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(_build.build_logs), "ptxas": ptxas})
+          "built": sorted(_build.build_logs), "ptxas": ptxas, "sass_atomics": sass_atomics()})
+
+
+def sass_atomics() -> dict:
+    """The atomic opcodes in each built library's SASS (cuobjdump), e.g. a
+    native shared-memory add or a compare-and-swap loop; None where the
+    toolkit has no cuobjdump."""
+    import shutil
+
+    from dfine_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in _build.SOURCES:
+        try:
+            sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
+                                  capture_output=True, text=True, timeout=120).stdout
+        except OSError:
+            return None
+        out[name] = sorted({w for line in sass.splitlines() for w in line.split()
+                            if w.startswith(("ATOM", "RED."))})
+    return out
 
 
 def _deform_inputs(dev, b, d, shapes, pts, value_dtype, seed, lo=-0.15, hi=1.15, q=QUERIES):
@@ -352,28 +378,51 @@ def phase_deform_fwd(res):
           "shape": f"m@640 B={TRAIN_BATCH} Q={TRAIN_QUERIES} bf16 value", **res["deform_train"]})
 
 
+def _kernels_of(fn) -> list:
+    """The device activities of one call of ``fn`` (torch.profiler), by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.key for e in _device_rows(prof) for _ in range(e.count))
+
+
 def _scatter(res, name):
     """A row scatter-add kernel against its plain version at the train
     step's shapes (f32 payload for ``rows_scatter_add``, bf16 for ``_mxu``
-    and ``_tiled``), with the edge cases and the times of one backward."""
+    and ``_tiled``), with the edge cases, the device activities of one call
+    and the times of one backward. ``_tiled`` is also held bit for bit
+    against the plain version on the CPU and against its own second run."""
     import torch
 
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
 
     fn = getattr(sr, name)
     f32 = name == "rows_scatter_add"
+    tiled = name == "rows_scatter_add_tiled"
     plain = sr.rows_scatter_add_plain if f32 else sr.rows_scatter_add_bf16_plain
     atol, rtol = (SCATTER_ATOL, SCATTER_RTOL) if f32 else (BF16_SCATTER_ATOL, BF16_SCATTER_RTOL)
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(1)
     r = TRAIN_BATCH * HEADS
+
+    def inputs(hw, n, d):
+        idx = torch.randint(-1, hw, (r, n), device=dev, generator=g, dtype=torch.int32)
+        contrib = torch.randn((r, n, d), device=dev, generator=g)
+        return idx, contrib if f32 else contrib.bfloat16()
+
+    def on_cpu(idx, contrib, hw):  # the plain version on the CPU, bit for bit
+        return torch.equal(fn(idx, contrib, hw).cpu(), plain(idx.cpu(), contrib.cpu(), hw))
+
     tot = {"bytes": 0.0, "flops": 0.0}
     max_err, levels = 0.0, []
     for (h, w), p in zip(M_SHAPES, M_POINTS):
         hw, n = h * w, TRAIN_QUERIES * p * 4
-        idx = torch.randint(-1, hw, (r, n), device=dev, generator=g, dtype=torch.int32)
-        contrib = torch.randn((r, n, HEAD_DIM), device=dev, generator=g)
-        contrib = contrib if f32 else contrib.bfloat16()
+        idx, contrib = inputs(hw, n, HEAD_DIM)
         out = fn(idx, contrib, hw)
         ref = plain(idx, contrib, hw)
         torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
@@ -386,11 +435,12 @@ def _scatter(res, name):
         one = fn(one_row, contrib, hw)
         # one row sums 6000-12000 entries: f32 rounding of sums of size ~100
         torch.testing.assert_close(one, plain(one_row, contrib, hw), atol=1e-3, rtol=1e-4)
-        if name == "rows_scatter_add_tiled":
+        if tiled:
             level["bit_equal_two_runs"] = bool(torch.equal(out, fn(idx, contrib, hw))
                                                and torch.equal(one, fn(one_row, contrib, hw)))
-            if not level["bit_equal_two_runs"]:
-                raise AssertionError("rows_scatter_add_tiled: two runs differ")
+            level["bit_equal_cpu"] = on_cpu(idx, contrib, hw) and on_cpu(one_row, contrib, hw)
+            if not (level["bit_equal_two_runs"] and level["bit_equal_cpu"]):
+                raise AssertionError(f"rows_scatter_add_tiled at hw {hw}: not bit-equal {level}")
         # library yardstick: index_add_ of the f32(-upcast) payload onto a
         # padded flat output whose pad row absorbs the dropped entries
         safe = torch.where(idx >= 0, idx, hw).long()
@@ -401,18 +451,7 @@ def _scatter(res, name):
             **timings("plain_", lambda: plain(idx, contrib, hw), 20),
             **timings("library_", lambda: torch.zeros(
                 (r * (hw + 1), HEAD_DIM), device=dev).index_add_(0, flat, src), 50)}
-        if name == "rows_scatter_add_tiled":  # the wrapper's steps, each on its own
-            key = torch.where(idx >= 0, idx, hw)
-            key_s, order = torch.sort(key, dim=1, stable=True)
-            payload, start = sr.sort_by_destination(idx, contrib, hw)
-            rows = torch.arange(hw + 1, dtype=key_s.dtype, device=dev).expand(r, hw + 1)
-            rows = rows.contiguous()
-            parts.update({
-                "sort_ms": device_ms(lambda: torch.sort(key, dim=1, stable=True)),
-                "gather_ms": device_ms(lambda: torch.gather(
-                    contrib, 1, order[..., None].expand(-1, -1, HEAD_DIM))),
-                "searchsorted_ms": device_ms(lambda: torch.searchsorted(key_s, rows)),
-                "kernel_ms": device_ms(lambda: sr.segment_sum_sorted(payload, start, hw))})
+        level["ms"] = parts["ms"]
         for key_, val in parts.items():
             if key_.endswith("ms") and val is not None:
                 tot[key_] = tot.get(key_, 0.0) + val
@@ -422,10 +461,29 @@ def _scatter(res, name):
                          + r * hw * HEAD_DIM * 4)
         tot["flops"] += int((idx >= 0).sum().item()) * HEAD_DIM
         levels.append(level)
+    # one call is one kernel: no fill of the output, no sort or gather around it
+    activities = _kernels_of(lambda: fn(idx, contrib, hw))
+    if name != "rows_scatter_add_mxu" and (len(activities) != 1
+                                           or "rows_scatter_add" not in activities[0]):
+        raise AssertionError(f"{name}: one call ran {activities}, want its kernel alone")
+    # head dim 16 (the n model): the first level of n@640, and an unsupported D raises
+    (h, w), p = N_SHAPES[0], N_POINTS[0]
+    idx, contrib = inputs(h * w, TRAIN_QUERIES * p * 4, 16)
+    torch.testing.assert_close(fn(idx, contrib, h * w), plain(idx, contrib, h * w),
+                               atol=atol, rtol=rtol)
+    if tiled and not on_cpu(idx, contrib, h * w):
+        raise AssertionError("rows_scatter_add_tiled at D = 16: not bit-equal to the CPU")
+    if name != "rows_scatter_add_mxu":
+        try:
+            fn(idx, contrib[..., :8].contiguous(), h * w)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name} took D = 8")
     bound_ms, bound_by = bound(tot["bytes"], tot["flops"])
     res[name] = {"max_abs_err": max_err, **{k: v for k, v in tot.items() if "ms" in k},
                  "bound_ms": bound_ms, "bound_by": bound_by, "levels": levels,
-                 "atol": atol, "rtol": rtol}
+                 "atol": atol, "rtol": rtol, "activities_per_call": activities}
     emit({"phase": f"kernel_{name}",
           "shape": f"m@640 train step, B={TRAIN_BATCH}, Q={TRAIN_QUERIES}, "
                    f"{'f32' if f32 else 'bf16'} payload: one backward = 3 calls, times summed",
@@ -755,6 +813,7 @@ def phase_train(res):
           "n_params": len(p0), "losses_finite": finite, "grads_finite": grads_finite})
     emit({"phase": "train_profile", "what": "one train step", **profile_window(
         lambda: (step(state, batch, gen), sync()), 1, top=12)})
+    res["train_run"] = (state, step, batch, gen)
     bad = [c for c in per_step if c != want]
     if bad or not finite or not grads_finite:
         raise AssertionError(f"train: counts {bad[:1]} (want {want}), finite {finite}, "
@@ -762,6 +821,91 @@ def phase_train(res):
     if moved < 0.9 * len(p0) or ema_moved < 0.9 * len(p0):
         raise AssertionError(f"train: {moved} params and {ema_moved} EMA tensors moved "
                              f"of {len(p0)}")
+
+
+@contextlib.contextmanager
+def captured_scatters(calls: list):
+    """Keep, in ``calls``, a copy of the inputs of every call of the default
+    value-gradient scatter while the context is open; each call still goes
+    on to the kernel."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    kernel = tda.rows_scatter_add
+
+    def keep(idx, contrib, hw):
+        calls.append((idx.clone(), contrib.clone(), hw))
+        return kernel(idx, contrib, hw)
+
+    # the backward picks the f32 payload by the identity of rows_scatter_add
+    tda.rows_scatter_add = tda._SCATTERS["pallas"] = keep
+    try:
+        yield calls
+    finally:
+        tda.rows_scatter_add = tda._SCATTERS["pallas"] = kernel
+
+
+def phase_scatter_in_situ(res):
+    """The three row scatter-adds and ``index_add_`` on the inputs that the
+    default backward of one more train step (phase_train's state, batch and
+    generator) gives its 12 calls: how the destinations cluster over the
+    kernels' 128-row tiles, each one's time on them (summed over the step),
+    ``rows_scatter_add`` against its plain version and ``_tiled`` bit for bit
+    against its plain version on the CPU."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    state, step, batch, gen = res.pop("train_run")
+    with captured_scatters([]) as calls:
+        step(state, batch, gen)
+        sync()
+    del state
+    if len(calls) != DECODER_LAYERS * len(M_SHAPES):
+        raise AssertionError(f"in situ: {len(calls)} scatter calls in one step")
+    names = ("rows_scatter_add", "rows_scatter_add_mxu", "rows_scatter_add_tiled")
+    total = dict.fromkeys((*names, "library"), 0.0)
+    levels = {}
+    for idx, contrib, hw in calls:
+        r, d = idx.shape[0], contrib.shape[-1]
+        kept = (idx >= 0) & (idx < hw)
+        safe = torch.where(kept, idx, hw).long()
+        tiles = -(-hw // TILE_ROWS)
+        ones = torch.ones_like(safe)
+        per_tile = torch.zeros((r, tiles + 1), dtype=torch.long, device=DEV).scatter_add_(
+            1, torch.where(kept, idx // TILE_ROWS, tiles).long(), ones)[:, :tiles].float()
+        per_pixel = torch.zeros((r, hw + 1), dtype=torch.long, device=DEV).scatter_add_(
+            1, safe, ones)[:, :hw]
+        c16 = contrib.bfloat16()
+        flat = (torch.arange(r, device=DEV)[:, None] * (hw + 1) + safe).reshape(-1)
+        src = contrib.reshape(-1, d)
+        payload = {"rows_scatter_add": contrib, "rows_scatter_add_mxu": c16,
+                   "rows_scatter_add_tiled": c16}
+        ms = {n: cuda_ms(lambda n=n: getattr(sr, n)(idx, payload[n], hw), 20) for n in names}
+        ms["library"] = cuda_ms(lambda: torch.zeros((r * (hw + 1), d), device=DEV).index_add_(
+            0, flat, src), 20)
+        torch.testing.assert_close(sr.rows_scatter_add(idx, contrib, hw),
+                                   sr.rows_scatter_add_plain(idx, contrib, hw),
+                                   atol=SCATTER_ATOL, rtol=SCATTER_RTOL)
+        if not torch.equal(sr.rows_scatter_add_tiled(idx, c16, hw).cpu(),
+                           sr.rows_scatter_add_bf16_plain(idx.cpu(), c16.cpu(), hw)):
+            raise AssertionError(f"in situ, hw {hw}: rows_scatter_add_tiled not bit-equal")
+        level = levels.setdefault(hw, {"n": idx.shape[1], "calls": 0, "kept_share": 0.0,
+                                       "tile_max_over_mean": 0.0, "busiest_pixel_entries": 0,
+                                       **{f"{k}_ms_per_call": 0.0 for k in ms}})
+        level["calls"] += 1
+        level["kept_share"] = max(level["kept_share"], float(kept.float().mean()))
+        level["tile_max_over_mean"] = max(level["tile_max_over_mean"],
+                                          float(per_tile.max() / per_tile.mean()))
+        level["busiest_pixel_entries"] = max(level["busiest_pixel_entries"],
+                                             int(per_pixel.max()))
+        for k, v in ms.items():
+            total[k] += v
+            level[f"{k}_ms_per_call"] += v / DECODER_LAYERS
+    res["in_situ"] = total
+    emit({"phase": "scatter_in_situ",
+          "what": f"the {len(calls)} scatter inputs of one {SIZE} detect train step (batch "
+                  f"{TRAIN_BATCH}, bf16): ms summed over the step, by CUDA events; library = "
+                  "index_add_ of the f32 payload", "ms_per_step": total, "levels": levels})
 
 
 def _unclipped_grads(state, metrics):
@@ -988,11 +1132,11 @@ def phase_train_parity(res):
 
 def kernel_line(res):
     d = res["deform"]
-    scatters = (("rows_scatter_add", "rows_scatter_add", 85, "train_counts",
+    scatters = (("rows_scatter_add", "rows_scatter_add_tile", 85, "train_counts",
                  f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one backward)"),
                 ("rows_scatter_add_mxu", "rows_scatter_add", 173, "mxu_counts",
                  "train, one step with set_deform_bwd('mxu') (ms: one backward)"),
-                ("rows_scatter_add_tiled", "rows_scatter_add_sorted", 277, "tiled_counts",
+                ("rows_scatter_add_tiled", "rows_scatter_add_tile", 277, "tiled_counts",
                  "train, one step with set_deform_bwd('tiled') (ms: one backward)"))
     return {"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
@@ -1035,7 +1179,8 @@ def main() -> int:
     res, failed = {}, []
     for fn in (phase_build, phase_deform_fwd, phase_scatter, phase_scatter_mxu,
                phase_scatter_tiled, phase_core_backward, phase_model, phase_serving,
-               phase_gradient, phase_train, phase_train_bwd_variants, phase_train_parity):
+               phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
+               phase_train_parity):
         t0 = time.perf_counter()
         try:
             fn(res)

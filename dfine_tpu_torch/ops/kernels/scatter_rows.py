@@ -3,13 +3,14 @@
 version. All compute out[r, idx[r, n], :] += contrib[r, n, :] with f32
 accumulation, dropping entries with idx outside [0, hw):
 
-- ``rows_scatter_add`` (replaces :64-97): f32 payload, fp32 atomics
-  (``csrc/rows_scatter_add.cu``);
+- ``rows_scatter_add`` (replaces :64-97): f32 payload, summed per
+  destination tile in shared memory (``csrc/rows_scatter_add_tile.cu``);
 - ``rows_scatter_add_mxu`` (replaces :137-185): each contribution rounded
-  once to bf16, fp32 atomics (``csrc/rows_scatter_add.cu``, bf16 entry);
+  once to bf16, global fp32 atomics (``csrc/rows_scatter_add.cu``);
 - ``rows_scatter_add_tiled`` (replaces :226-283): the same bf16 payload,
-  sorted by destination with a stable sort, then a segmented reduction with
-  no atomics (``csrc/rows_scatter_add_sorted.cu``): deterministic.
+  counting-sorted by destination inside each tile and summed in increasing
+  n (``csrc/rows_scatter_add_tile.cu``): bit-equal from run to run and to
+  the CPU's plain version.
 
 CPU tensors take the plain versions (``index_add_`` onto a padded row that
 absorbs the dropped entries, the bf16 forms on the rounded payload); CUDA
@@ -19,11 +20,12 @@ tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
 
 import torch
 
 from . import _build
+
+TILE_WIDTHS = (16, 32)  # the head dims the tile kernels take (n: 16, s/m/l/x: 32)
 
 
 def rows_scatter_add_plain(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch.Tensor:
@@ -52,7 +54,7 @@ def _fn(source: str, name: str):
     return fn
 
 
-def _check(name: str, idx: torch.Tensor, contrib: torch.Tensor, dtypes) -> None:
+def _check(name: str, idx: torch.Tensor, contrib: torch.Tensor, dtypes, widths=None) -> None:
     if idx.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {idx.device}")
     if idx.dtype != torch.int32 or contrib.dtype not in dtypes:
@@ -65,6 +67,8 @@ def _check(name: str, idx: torch.Tensor, contrib: torch.Tensor, dtypes) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
     if contrib.device != idx.device:
         raise ValueError(f"{name}: idx and contrib must be on one device")
+    if widths is not None and contrib.shape[-1] not in widths:
+        raise ValueError(f"{name}: D = {contrib.shape[-1]} not supported, only {widths}")
 
 
 def _launch(name: str, source: str, entry: str, args, device) -> None:
@@ -80,11 +84,11 @@ def rows_scatter_add(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch
     (f32 payload); entries with idx outside [0, hw) are dropped."""
     if idx.device.type == "cpu":
         return rows_scatter_add_plain(idx, contrib, hw)
-    _check("rows_scatter_add", idx, contrib, (torch.float32,))
+    _check("rows_scatter_add", idx, contrib, (torch.float32,), TILE_WIDTHS)
     r, n = idx.shape
     d = contrib.shape[-1]
-    out = torch.zeros((r, hw, d), dtype=torch.float32, device=idx.device)
-    _launch("rows_scatter_add", "rows_scatter_add", "rows_scatter_add",
+    out = torch.empty((r, hw, d), dtype=torch.float32, device=idx.device)
+    _launch("rows_scatter_add", "rows_scatter_add_tile", "rows_scatter_add",
             (idx.data_ptr(), contrib.data_ptr(), out.data_ptr(), r, n, hw, d), idx.device)
     rows_scatter_add.launches += 1
     return out
@@ -106,48 +110,20 @@ def rows_scatter_add_mxu(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> t
     return out
 
 
-def sort_by_destination(idx: torch.Tensor, contrib: torch.Tensor,
-                        hw: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wrapper's half of ``rows_scatter_add_tiled``: the bf16 payload
-    in destination order (a *stable* sort, dropped entries keyed ``hw`` so
-    they sort last and fall in no run) and the run start of every
-    destination row, start [R, hw + 1] int32."""
-    r = idx.shape[0]
-    key = torch.where((idx >= 0) & (idx < hw), idx, hw)
-    # torch.sort is not stable by default on CUDA: equal keys in a varying
-    # order would make the sums vary in their low bits from run to run
-    key_s, order = torch.sort(key, dim=1, stable=True)
-    payload = torch.gather(contrib.to(torch.bfloat16), 1,
-                           order[..., None].expand(-1, -1, contrib.shape[-1]))
-    rows = torch.arange(hw + 1, dtype=key_s.dtype, device=idx.device).expand(r, hw + 1)
-    start = torch.searchsorted(key_s.contiguous(), rows.contiguous(), side="left")
-    return payload, start.to(torch.int32)
-
-
-def segment_sum_sorted(payload: torch.Tensor, start: torch.Tensor, hw: int) -> torch.Tensor:
-    """The kernel's half of ``rows_scatter_add_tiled``: out[r, j] = the f32
-    sum of payload[r, start[r, j]:start[r, j + 1]] in order."""
-    r, n, d = payload.shape
-    if payload.dtype != torch.bfloat16 or start.dtype != torch.int32:
-        raise TypeError("segment_sum_sorted takes a bf16 payload and int32 starts")
-    if tuple(start.shape) != (r, hw + 1) or not (payload.is_contiguous() and start.is_contiguous()):
-        raise ValueError(f"segment_sum_sorted: start {tuple(start.shape)} for payload "
-                         f"{tuple(payload.shape)}, hw {hw}, both contiguous")
-    out = torch.empty((r, hw, d), dtype=torch.float32, device=payload.device)
-    _launch("rows_scatter_add_tiled", "rows_scatter_add_sorted", "rows_scatter_add_sorted",
-            (payload.data_ptr(), start.data_ptr(), out.data_ptr(), r, n, hw, d),
-            payload.device)
-    return out
-
-
 def rows_scatter_add_tiled(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch.Tensor:
     """As ``rows_scatter_add_mxu`` (bf16 payload, f32 accumulation) but
-    deterministic: sort by destination, then sum each destination row's run
-    in order, with no atomics. Two runs give bit-equal output."""
+    deterministic: each output element is the sum of its entries in
+    increasing n, with no atomics. Two runs give bit-equal output, equal to
+    the CPU's ``rows_scatter_add_bf16_plain``."""
     if idx.device.type == "cpu":
         return rows_scatter_add_bf16_plain(idx, contrib, hw)
-    _check("rows_scatter_add_tiled", idx, contrib, (torch.float32, torch.bfloat16))
-    out = segment_sum_sorted(*sort_by_destination(idx, contrib, hw), hw)
+    _check("rows_scatter_add_tiled", idx, contrib, (torch.float32, torch.bfloat16), TILE_WIDTHS)
+    payload = contrib.to(torch.bfloat16)
+    r, n = idx.shape
+    d = contrib.shape[-1]
+    out = torch.empty((r, hw, d), dtype=torch.float32, device=idx.device)
+    _launch("rows_scatter_add_tiled", "rows_scatter_add_tile", "rows_scatter_add_tiled",
+            (idx.data_ptr(), payload.data_ptr(), out.data_ptr(), r, n, hw, d), idx.device)
     rows_scatter_add_tiled.launches += 1
     return out
 

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
+
 pytestmark = pytest.mark.cuda
 
 M_SHAPES, M_POINTS = ((80, 80), (40, 40), (20, 20)), (3, 6, 3)  # m@640
@@ -59,20 +61,82 @@ def test_deform_fwd_kernel_out_of_range_is_exact_zero(cuda):
     assert torch.count_nonzero(out).item() == 0
 
 
-def test_scatter_kernel_matches_plain(cuda):
-    """atol 1e-4, rtol 1e-5 (atomics reorder the f32 sums); all-dropped
-    gives exact zeros."""
+@pytest.mark.parametrize("d", [16, 32])
+def test_scatter_kernel_matches_plain(cuda, d):
+    """At the train step's shapes (m@640, B = 8, 500 queries): atol 1e-4,
+    rtol 1e-5 (shared-memory atomics reorder the f32 sums); all-dropped
+    gives exact zeros; one call is the kernel alone (no fill of the
+    output)."""
     from dfine_tpu_torch.ops.kernels.scatter_rows import rows_scatter_add, rows_scatter_add_plain
 
     g = torch.Generator(device=cuda).manual_seed(0)
-    for n, hw in ((3600, 6400), (7200, 1600), (3600, 400)):
+    for n, hw in ((6000, 6400), (12000, 1600), (6000, 400)):
         idx = torch.randint(-1, hw, (64, n), device=cuda, generator=g, dtype=torch.int32)
-        contrib = torch.randn((64, n, 32), device=cuda, generator=g)
+        contrib = torch.randn((64, n, d), device=cuda, generator=g)
         out = rows_scatter_add(idx, contrib, hw)
         torch.testing.assert_close(out, rows_scatter_add_plain(idx, contrib, hw),
                                    atol=1e-4, rtol=1e-5)
         dropped = rows_scatter_add(torch.full_like(idx, -1), contrib, hw)
         assert torch.count_nonzero(dropped).item() == 0
+    assert _kernels_of(lambda: rows_scatter_add(idx, contrib, hw)) == 1
+
+
+def _kernels_of(fn):
+    """The number of device activities (kernels, fills, copies) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _tile_case(dev, case, d):
+    if case.startswith("rows_"):  # tiles of 128 rows: fewer rows, one more, a ragged last
+        hw = int(case[5:])
+        rng = np.random.default_rng(hw)
+        idx, contrib = rng.integers(-1, hw + 1, (5, 3000)), rng.normal(size=(5, 3000, d))
+    else:
+        idx, contrib, hw = scatter_case(case, d)
+    return (torch.from_numpy(idx.astype(np.int32)).to(dev),
+            torch.from_numpy(contrib.astype(np.float32)).to(dev), hw)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("case", [*EDGE_CASES, "rows_1", "rows_100", "rows_129", "rows_1000"])
+@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_tiled"])
+def test_tile_scatter_kernels_on_edge_cases(cuda, name, case, d):
+    """The edge cases of the CPU tests and destination counts around the
+    kernels' 128-row tiles: ``rows_scatter_add`` within atol 1e-4, rtol 1e-5
+    of its plain version; ``rows_scatter_add_tiled`` bit-equal to its plain
+    version on the CPU (the same sums in the same order) and to its own
+    second run."""
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    idx, contrib, hw = _tile_case(cuda, case, d)
+    fn = getattr(sr, name)
+    out = fn(idx, contrib, hw)
+    torch.cuda.synchronize()
+    assert out.shape == (idx.shape[0], hw, d)
+    if name == "rows_scatter_add":
+        torch.testing.assert_close(out, sr.rows_scatter_add_plain(idx, contrib, hw),
+                                   atol=1e-4, rtol=1e-5)
+    else:
+        assert torch.equal(out.cpu(), sr.rows_scatter_add_bf16_plain(idx.cpu(), contrib.cpu(), hw))
+        assert torch.equal(out, fn(idx, contrib, hw))
+
+
+@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_tiled"])
+def test_tile_scatter_kernels_reject_other_widths(cuda, name, d):
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    idx = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="not supported"):
+        getattr(sr, name)(idx, torch.ones((2, 10, d), device=cuda), 4)
 
 
 def test_core_backward_matches_autograd_of_plain(cuda):
@@ -128,18 +192,24 @@ def test_bf16_scatter_kernels_match_plain(cuda, name):
 
 
 def test_tiled_scatter_is_bit_equal_over_runs(cuda):
-    """The sorted segmented reduction has no atomics: repeated runs give
-    bit-equal output, also when thousands of entries share each row."""
-    from dfine_tpu_torch.ops.kernels.scatter_rows import rows_scatter_add_tiled
+    """No atomics: repeated runs give bit-equal output, equal to the plain
+    version on the CPU (each sum taken in increasing n), at the train step's
+    shapes, also when every entry falls in one row or thousands share each
+    of four rows; one call is the kernel alone (no sort, no gather)."""
+    from dfine_tpu_torch.ops.kernels.scatter_rows import (rows_scatter_add_bf16_plain,
+                                                          rows_scatter_add_tiled)
 
     g = torch.Generator(device=cuda).manual_seed(1)
-    idx = torch.randint(-1, 1600, (64, 12000), device=cuda, generator=g, dtype=torch.int32)
-    contrib = torch.randn((64, 12000, 32), device=cuda, generator=g).bfloat16()
-    first = rows_scatter_add_tiled(idx, contrib, 1600)
-    assert all(torch.equal(first, rows_scatter_add_tiled(idx, contrib, 1600)) for _ in range(3))
-    few = torch.randint(0, 4, (64, 12000), device=cuda, generator=g, dtype=torch.int32)
-    assert torch.equal(rows_scatter_add_tiled(few, contrib, 400),
-                       rows_scatter_add_tiled(few, contrib, 400))
+    for n, hw in ((6000, 6400), (12000, 1600), (6000, 400)):
+        idx = torch.randint(-1, hw, (64, n), device=cuda, generator=g, dtype=torch.int32)
+        contrib = torch.randn((64, n, 32), device=cuda, generator=g).bfloat16()
+        for case in (idx, torch.full_like(idx, hw // 2), torch.randint_like(idx, 0, 4)):
+            first = rows_scatter_add_tiled(case, contrib, hw)
+            assert all(torch.equal(first, rows_scatter_add_tiled(case, contrib, hw))
+                       for _ in range(2))
+            assert torch.equal(first.cpu(),
+                               rows_scatter_add_bf16_plain(case.cpu(), contrib.cpu(), hw))
+    assert _kernels_of(lambda: rows_scatter_add_tiled(idx, contrib, hw)) == 1
 
 
 @pytest.mark.parametrize("impl", ["mxu", "tiled"])

@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 
 import test_torch_port_helpers  # noqa: F401  (thread count)
+from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
 
 
 def test_boxes_and_fdr_match_jax():
@@ -109,21 +110,27 @@ def test_ms_deform_attn_core_grads_match_jax_pallas_backward():
 def _naive_scatter(idx, contrib, hw):
     ref = np.zeros((idx.shape[0], hw, contrib.shape[-1]), np.float32)
     for r in range(idx.shape[0]):
-        valid = idx[r] >= 0
+        valid = (idx[r] >= 0) & (idx[r] < hw)
         np.add.at(ref[r], idx[r][valid], contrib[r][valid])
     return ref
 
 
-def test_rows_scatter_add_plain_matches_jax_and_numpy():
+@pytest.mark.parametrize("case", ["random", *EDGE_CASES])
+def test_rows_scatter_add_plain_matches_jax_and_numpy(case):
     """Against the Pallas kernel (interpret mode) and np.add.at; tolerance
-    of test_pallas_scatter.py:24 (atol 1e-4, rtol 1e-5)."""
+    of test_pallas_scatter.py:24 (atol 1e-4, rtol 1e-5). The edge cases of
+    ``test_torch_port_scatter_cases`` come at head dim 16."""
     from dfine_tpu.ops.pallas.scatter_rows import rows_scatter_add as jscatter
     from dfine_tpu_torch.ops.kernels.scatter_rows import rows_scatter_add, rows_scatter_add_plain
 
-    rng = np.random.default_rng(0)
-    bh, n, d, hw = 4, 1000, 32, 777
-    idx = rng.integers(-1, hw, (bh, n)).astype(np.int32)
-    contrib = rng.normal(size=(bh, n, d)).astype(np.float32)
+    if case == "random":
+        rng = np.random.default_rng(0)
+        bh, n, d, hw = 4, 1000, 32, 777
+        idx = rng.integers(-1, hw, (bh, n)).astype(np.int32)
+        contrib = rng.normal(size=(bh, n, d)).astype(np.float32)
+    else:
+        idx, contrib, hw = scatter_case(case, 16)
+        bh, n, d = contrib.shape
     ours = rows_scatter_add(torch.from_numpy(idx), torch.from_numpy(contrib), hw).numpy()
     np.testing.assert_allclose(ours, _naive_scatter(idx, contrib, hw), atol=1e-4, rtol=1e-5)
     ref_j = np.asarray(jscatter(jnp.asarray(idx), jnp.asarray(contrib), hw, interpret=True))

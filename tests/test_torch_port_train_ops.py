@@ -1,6 +1,6 @@
 """The train-step slice's pieces against the JAX package on the CPU, fp32,
-on the same numpy inputs: the bf16 scatters' plain versions and the
-wrapper's sort, the deform core's mxu/tiled backward, (G)IoU and the FGL bin
+on the same numpy inputs: the bf16 scatters' plain versions, the deform
+core's mxu/tiled backward, (G)IoU and the FGL bin
 targets, the CDN queries, the matcher, the criterion, the schedule and the
 parameter groups. Each test states its tolerance."""
 
@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_port_helpers import jax_cdn_noise, jax_template_shapes
+from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
 
 
 def _t(x):
@@ -26,7 +27,7 @@ def _bf16_naive(idx, contrib, hw):
     rounded = np.asarray(jnp.asarray(contrib).astype(jnp.bfloat16), np.float32)
     ref = np.zeros((idx.shape[0], hw, contrib.shape[-1]), np.float32)
     for b in range(idx.shape[0]):
-        keep = idx[b] >= 0
+        keep = (idx[b] >= 0) & (idx[b] < hw)
         np.add.at(ref[b], idx[b][keep], rounded[b][keep])
     return ref
 
@@ -38,15 +39,19 @@ def _cases():
     one_row = np.full((2, 600), 700, np.int32)  # every update in one row (and one TPU tile)
     ones = np.ones((2, 600, 8), np.float32)
     dropped = np.full((2, 600), -1, np.int32)
-    return {"random": (rand_idx, rand, 777), "one_row": (one_row, ones, 2000),
-            "all_dropped": (dropped, ones, 2000)}
+    cases = {"random": (rand_idx, rand, 777), "one_row": (one_row, ones, 2000),
+             "all_dropped": (dropped, ones, 2000)}
+    cases.update({name: scatter_case(name, 16, seed=1) for name in EDGE_CASES})
+    return cases
 
 
 @pytest.mark.parametrize("impl", ["mxu", "tiled"])
-@pytest.mark.parametrize("case", ["random", "one_row", "all_dropped"])
+@pytest.mark.parametrize("case", ["random", "one_row", "all_dropped", *EDGE_CASES])
 def test_bf16_scatter_plain_matches_pallas_and_naive(impl, case):
     """atol 1e-5, rtol 1e-6 (test_pallas_scatter.py:48, :165): f32 sums of
-    the same bf16-rounded payload in another order."""
+    the same bf16-rounded payload in another order. The plain version adds
+    the entries in increasing n, as ``np.add.at`` does, so the two are
+    bit-equal: the order that the card's ``tiled`` kernel keeps."""
     from dfine_tpu.ops.pallas import scatter_rows as jsr
 
     from dfine_tpu_torch.ops.kernels import scatter_rows as tsr
@@ -56,30 +61,11 @@ def test_bf16_scatter_plain_matches_pallas_and_naive(impl, case):
     ref_pallas = np.asarray(pallas(jnp.asarray(idx), jnp.asarray(contrib), hw, interpret=True))
     ours = getattr(tsr, f"rows_scatter_add_{impl}")(_t(idx), _t(contrib), hw).numpy()
     np.testing.assert_allclose(ours, ref_pallas, atol=1e-5, rtol=1e-6)
-    np.testing.assert_allclose(ours, _bf16_naive(idx, contrib, hw), atol=1e-5, rtol=1e-6)
+    np.testing.assert_array_equal(ours, _bf16_naive(idx, contrib, hw))
     if case == "one_row":
         assert ours[0, 700, 0] == 600 and np.count_nonzero(ours[:, :700]) == 0
     if case == "all_dropped":
         assert np.count_nonzero(ours) == 0
-
-
-@pytest.mark.parametrize("case", ["random", "one_row", "all_dropped"])
-def test_tiled_sort_gives_each_row_its_run(case):
-    """The tiled wrapper's sort, gather and searchsorted (the part that runs
-    on the card around the kernel): summing each destination row's run of
-    the sorted payload in float64 gives the bf16-rounded naive sum (atol
-    1e-5); the runs cover exactly the kept entries."""
-    from dfine_tpu_torch.ops.kernels.scatter_rows import sort_by_destination
-
-    idx, contrib, hw = _cases()[case]
-    payload, start = sort_by_destination(_t(idx), _t(contrib), hw)
-    assert payload.dtype == torch.bfloat16 and start.dtype == torch.int32
-    assert (start[:, -1] == torch.from_numpy(((idx >= 0) & (idx < hw)).sum(1))).all()
-    csum = torch.cat([torch.zeros_like(payload[:, :1], dtype=torch.float64),
-                      payload.double().cumsum(1)], 1)
-    runs = torch.gather(csum, 1, start.long()[..., None].expand(-1, -1, payload.shape[-1]))
-    np.testing.assert_allclose((runs[:, 1:] - runs[:, :-1]).numpy(),
-                               _bf16_naive(idx, contrib, hw), atol=1e-5)
 
 
 # --------------------------------------------------- (b) deform core grads --
