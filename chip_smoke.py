@@ -8,11 +8,14 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases, each printed as one JSON line:
 
 1. build: every hand-written kernel from ``dfine_tpu_torch/csrc`` (one nvcc
-   per source, started together);
+   per source, started together), with each kernel's registers and spills
+   and the atomic opcodes in its SASS (none in the tensor-core scatter);
 2. kernels: each kernel against its plain PyTorch version on the card at the
    shapes of D-FINE-m at 640 px (TF32 off), with its time, the plain
    version's, one PyTorch call's where one computes the same function, and
-   the least time the card could take (bound). The three row scatter-adds
+   the least time the card could take (bound); the deformable-attention
+   kernel also beside the time of a launch of it with no work. The three
+   row scatter-adds
    (the value gradient of the deformable attention: ``rows_scatter_add``,
    ``_mxu`` and ``_tiled``) run at the train step's shapes and at head dim
    16, ``_tiled`` also bit for bit against its plain version on the CPU;
@@ -47,6 +50,8 @@ import contextlib
 import copy
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -274,36 +279,60 @@ def randomize_(model, seed: int) -> None:
 # ------------------------------------------------------------------ phases --
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """nvcc's -Xptxas -v lines (registers, spills, shared memory) by kernel,
+    under its mangled name."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            cur = out.setdefault(entry.group(1), [])
+        elif cur is not None and ("registers" in line or "spill" in line):
+            cur.append(line.split("ptxas info    :")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def phase_build(res):
     from dfine_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:  # one nvcc per source, together
         list(pool.map(_build.load, _build.SOURCES))
-    ptxas = {n: sorted({l.strip() for l in log.splitlines() if "registers" in l or "spill" in l})
-             for n, log in _build.build_logs.items()}
+    ptxas = {n: ptxas_by_kernel(log) for n, log in _build.build_logs.items()}
+    atomics = sass_atomics()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(_build.build_logs), "ptxas": ptxas, "sass_atomics": sass_atomics()})
+          "built": sorted(_build.build_logs), "ptxas": ptxas, "sass_atomics": atomics})
+    # the mma scatter sums on the tensor cores: no atomic in its own functions
+    mma = {f: o for f, o in atomics["rows_scatter_add_tile"].items()
+           if "rows_scatter_add_mma_kernel" in f}
+    if not mma or any(mma.values()):
+        raise AssertionError(f"rows_scatter_add_mma_kernel SASS atomics: {mma or 'not found'}")
 
 
 def sass_atomics() -> dict:
-    """The atomic opcodes in each built library's SASS (cuobjdump), e.g. a
-    native shared-memory add or a compare-and-swap loop; None where the
-    toolkit has no cuobjdump."""
+    """The atomic opcodes in the SASS (cuobjdump) of each kernel function of
+    each built library, e.g. a native shared-memory add or a compare-and-swap
+    loop: {library: {mangled kernel name: [opcodes]}}. Raises where the
+    toolkit has no cuobjdump: the mma scatter's lack of atomics is then not
+    checked."""
     import shutil
 
     from dfine_tpu_torch.ops.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise FileNotFoundError(f"cuobjdump not found ({tool}): SASS atomics cannot be checked")
     out = {}
     for name in _build.SOURCES:
-        try:
-            sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
-                                  capture_output=True, text=True, timeout=120).stdout
-        except OSError:
-            return None
-        out[name] = sorted({w for line in sass.splitlines() for w in line.split()
-                            if w.startswith(("ATOM", "RED."))})
+        sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        funcs, ops = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                ops = funcs.setdefault(line.split("Function :", 1)[1].strip(), set())
+            elif ops is not None:
+                ops.update(w for w in line.split() if w.startswith(("ATOM", "RED.")))
+        out[name] = {f: sorted(o) for f, o in funcs.items()}
     return out
 
 
@@ -318,13 +347,53 @@ def _deform_inputs(dev, b, d, shapes, pts, value_dtype, seed, lo=-0.15, hi=1.15,
     return value.to(dev, value_dtype), loc.to(dev), att.softmax(-1).to(dev)
 
 
-def _deform_bound(v, l, a):
-    b, q = l.shape[:2]
-    n_pts = b * q * HEADS * sum(M_POINTS)
-    nbytes = (v.numel() * v.element_size() + l.numel() * 4 + a.numel() * 4
-              + b * q * HEADS * HEAD_DIM * 4)
-    flops = n_pts * (4 * 2 * HEAD_DIM + 2 * HEAD_DIM)  # 4 corner FMAs + the att FMA per channel
+def _deform_bound(v, l, a, shapes=M_SHAPES, pts=M_POINTS):
+    """The least time for this run's data: loc, att and the output once, and
+    of the value only the distinct (b, row, head) rows that a valid corner
+    of ``l`` reads (found as the plain version finds its corners); an FMA a
+    channel for each valid corner and each point's att."""
+    import torch
+
+    b, q, heads = l.shape[:3]
+    s, d = v.shape[1], v.shape[3]
+    keys, corners, start, p0 = [], 0, 0, 0
+    for (h, w), p in zip(shapes, pts):
+        lv = l[:, :, :, p0:p0 + p].float()
+        x0 = torch.floor(lv[..., 0] * w - 0.5).long()
+        y0 = torch.floor(lv[..., 1] * h - 0.5).long()
+        head = torch.arange(heads, device=l.device)[None, None, :, None]
+        batch = torch.arange(b, device=l.device)[:, None, None, None]
+        for dy in (0, 1):
+            for dx in (0, 1):
+                xi, yi = x0 + dx, y0 + dy
+                valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+                key = (batch * s + start + yi * w + xi) * heads + head
+                keys.append(key[valid])
+                corners += int(valid.sum().item())
+        start += h * w
+        p0 += p
+    rows = torch.unique(torch.cat(keys)).numel()
+    nbytes = (rows * d * v.element_size() + l.numel() * 4 + a.numel() * 4
+              + b * q * heads * d * 4)
+    flops = corners * 2 * d + a.numel() * 2 * d
     return bound(nbytes, flops)
+
+
+def _empty_deform_launch():
+    """A call that launches ``ms_deform_attn_fwd_kernel`` with no items."""
+    import ctypes
+
+    import torch
+
+    from dfine_tpu_torch.ops.kernels import _build
+
+    fn = _build.load("ms_deform_attn_fwd").ms_deform_attn_fwd_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def call():
+        if fn(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("empty launch of ms_deform_attn_fwd_kernel failed")
+    return call
 
 
 def phase_deform_fwd(res):
@@ -351,10 +420,12 @@ def phase_deform_fwd(res):
     if nonzero:
         raise AssertionError(f"out-of-range locations gave {nonzero} nonzero outputs")
 
-    # timing at the serving shape: m@640, B=1, bf16 value, locations in the map
+    # timing at the serving shape: m@640, B=1, bf16 value, locations in the map;
+    # beside it the floor of any launch: the same kernel launched with no items
     v, l, a = _deform_inputs(dev, 1, HEAD_DIM, M_SHAPES, M_POINTS, torch.bfloat16, 4, 0.0, 1.0)
     t = {**timings("", lambda: ms_deform_attn_fwd(v, M_SHAPES, l, a, M_POINTS), 200),
-         **timings("plain_", lambda: ms_deform_attn_fwd_plain(v, M_SHAPES, l, a, M_POINTS), 20)}
+         **timings("plain_", lambda: ms_deform_attn_fwd_plain(v, M_SHAPES, l, a, M_POINTS), 20),
+         **timings("empty_launch_", _empty_deform_launch(), 200)}
     bound_ms, bound_by = _deform_bound(v, l, a)
     res["deform"] = {"max_abs_err": max_err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
                      "checks": checks}
@@ -396,7 +467,8 @@ def _scatter(res, name):
     step's shapes (f32 payload for ``rows_scatter_add``, bf16 for ``_mxu``
     and ``_tiled``), with the edge cases, the device activities of one call
     and the times of one backward. ``_tiled`` is also held bit for bit
-    against the plain version on the CPU and against its own second run."""
+    against the plain version on the CPU and against its own second run;
+    for ``_mxu`` the script reports whether two runs are bit-equal."""
     import torch
 
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
@@ -435,9 +507,10 @@ def _scatter(res, name):
         one = fn(one_row, contrib, hw)
         # one row sums 6000-12000 entries: f32 rounding of sums of size ~100
         torch.testing.assert_close(one, plain(one_row, contrib, hw), atol=1e-3, rtol=1e-4)
-        if tiled:
+        if not f32:  # no atomics: reported for mxu, the contract of tiled
             level["bit_equal_two_runs"] = bool(torch.equal(out, fn(idx, contrib, hw))
                                                and torch.equal(one, fn(one_row, contrib, hw)))
+        if tiled:
             level["bit_equal_cpu"] = on_cpu(idx, contrib, hw) and on_cpu(one_row, contrib, hw)
             if not (level["bit_equal_two_runs"] and level["bit_equal_cpu"]):
                 raise AssertionError(f"rows_scatter_add_tiled at hw {hw}: not bit-equal {level}")
@@ -463,8 +536,7 @@ def _scatter(res, name):
         levels.append(level)
     # one call is one kernel: no fill of the output, no sort or gather around it
     activities = _kernels_of(lambda: fn(idx, contrib, hw))
-    if name != "rows_scatter_add_mxu" and (len(activities) != 1
-                                           or "rows_scatter_add" not in activities[0]):
+    if len(activities) != 1 or "rows_scatter_add" not in activities[0]:
         raise AssertionError(f"{name}: one call ran {activities}, want its kernel alone")
     # head dim 16 (the n model): the first level of n@640, and an unsupported D raises
     (h, w), p = N_SHAPES[0], N_POINTS[0]
@@ -473,13 +545,12 @@ def _scatter(res, name):
                                atol=atol, rtol=rtol)
     if tiled and not on_cpu(idx, contrib, h * w):
         raise AssertionError("rows_scatter_add_tiled at D = 16: not bit-equal to the CPU")
-    if name != "rows_scatter_add_mxu":
-        try:
-            fn(idx, contrib[..., :8].contiguous(), h * w)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"{name} took D = 8")
+    try:
+        fn(idx, contrib[..., :8].contiguous(), h * w)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{name} took D = 8")
     bound_ms, bound_by = bound(tot["bytes"], tot["flops"])
     res[name] = {"max_abs_err": max_err, **{k: v for k, v in tot.items() if "ms" in k},
                  "bound_ms": bound_ms, "bound_by": bound_by, "levels": levels,
@@ -811,8 +882,9 @@ def phase_train(res):
           "launches_total": total, "hungarian_host_per_step": matching,
           "params_moved": moved, "ema_moved": ema_moved,
           "n_params": len(p0), "losses_finite": finite, "grads_finite": grads_finite})
-    emit({"phase": "train_profile", "what": "one train step", **profile_window(
-        lambda: (step(state, batch, gen), sync()), 1, top=12)})
+    prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
+    res["train_in_situ"] = prof["ours"]
+    emit({"phase": "train_profile", "what": "one train step", **prof})
     res["train_run"] = (state, step, batch, gen)
     bad = [c for c in per_step if c != want]
     if bad or not finite or not grads_finite:
@@ -1130,14 +1202,26 @@ def phase_train_parity(res):
         raise AssertionError(f"train parity first moment: {_worst(bad)} beyond {PARITY_MU_REL}")
 
 
+def in_situ_ms(res, kernel: str):
+    """ms a launch of ``kernel`` in the default train step's profile (all its
+    instances), or None where that step does not launch it."""
+    rows = [v for k, v in res["train_in_situ"].items() if kernel in k]
+    n = sum(v["count_per_call"] for v in rows)
+    return sum(v["ms_per_launch"] * v["count_per_call"] for v in rows) / n if n else None
+
+
 def kernel_line(res):
     d = res["deform"]
-    scatters = (("rows_scatter_add", "rows_scatter_add_tile", 85, "train_counts",
-                 f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one backward)"),
-                ("rows_scatter_add_mxu", "rows_scatter_add", 173, "mxu_counts",
-                 "train, one step with set_deform_bwd('mxu') (ms: one backward)"),
-                ("rows_scatter_add_tiled", "rows_scatter_add_tile", 277, "tiled_counts",
-                 "train, one step with set_deform_bwd('tiled') (ms: one backward)"))
+    # (name, pallas_call line, launch counts, path, kernel symbol)
+    scatters = (("rows_scatter_add", 85, "train_counts",
+                 f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one backward)",
+                 "rows_scatter_add_tile_kernel"),
+                ("rows_scatter_add_mxu", 173, "mxu_counts",
+                 "train, one step with set_deform_bwd('mxu') (ms: one backward)",
+                 "rows_scatter_add_mma_kernel"),
+                ("rows_scatter_add_tiled", 277, "tiled_counts",
+                 "train, one step with set_deform_bwd('tiled') (ms: one backward)",
+                 "rows_scatter_add_tile_sorted_kernel"))
     return {"kernels": [
         {"name": "ms_deform_attn_fwd", "route": "cuda",
          "source": "dfine_tpu_torch/csrc/ms_deform_attn_fwd.cu",
@@ -1145,17 +1229,21 @@ def kernel_line(res):
          "launches": res["serving_counts"]["ms_deform_attn_fwd"],
          "train_launches": res["train_counts"]["ms_deform_attn_fwd"],
          "train_shape_ms": res["deform_train"]["ms"],
+         "train_in_situ_ms": in_situ_ms(res, "ms_deform_attn_fwd_kernel"),
+         "empty_launch_ms": d["empty_launch_ms"],
          "max_abs_err": d["max_abs_err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
          "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
          "path": f"serving, {SERVE_FRAMES} frames"},
     ] + [
-        {"name": name, "route": "cuda", "source": f"dfine_tpu_torch/csrc/{src}.cu",
+        {"name": name, "route": "cuda", "source": "dfine_tpu_torch/csrc/rows_scatter_add_tile.cu",
          "replaces": f"dfine_tpu/ops/pallas/scatter_rows.py:{line}",
          "launches": res[counts][name], "max_abs_err": res[name]["max_abs_err"],
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
-         "library_ms": res[name]["library_ms"], "path": path}
-        for name, src, line, counts, path in scatters
+         "library_ms": res[name]["library_ms"], "path": path,
+         "train_in_situ_ms": in_situ_ms(res, symbol),
+         "step_inputs_ms": res["in_situ"][name]}
+        for name, line, counts, path, symbol in scatters
     ]}
 
 

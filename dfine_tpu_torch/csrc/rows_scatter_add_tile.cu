@@ -2,26 +2,32 @@
 //
 //   out[r, j, :] = sum over n with idx[r, n] == j of contrib[r, n, :],  0 <= j < HW
 //
-// (entries with idx outside [0, HW) are dropped). Two C entry points:
+// (entries with idx outside [0, HW) are dropped). Three C entry points:
 //
 //   rows_scatter_add       f32 payload, f32 sums in shared-memory atomics
 //                          <- dfine_tpu/ops/pallas/scatter_rows.py::rows_scatter_add
 //                             (:64-97, pallas_call :85, kernel body _kernel :37-61)
+//   rows_scatter_add_mxu   bf16 payload, f32 sums of one-hot products on the
+//                          tensor cores (mma.sync), no atomics
+//                          <- dfine_tpu/ops/pallas/scatter_rows.py::rows_scatter_add_mxu
+//                             (:137-185, pallas_call :173, kernel body _kernel_mxu :116-134)
 //   rows_scatter_add_tiled bf16 payload, f32 sums in a fixed order: deterministic
 //                          <- dfine_tpu/ops/pallas/scatter_rows.py::rows_scatter_add_tiled
 //                             (:226-283, pallas_call :277, kernel body _kernel_tiled :203-223)
 //
-// Both are the value gradient of the deformable-attention core. The Pallas
-// kernels built a one-hot match matrix per (row, destination tile) and summed
-// on the MXU, and the tiled one sorted the entries by destination beforehand;
-// the matrix product, and the global sort with its payload gather, are not
-// carried over. What is kept is the grid over (r, destination tile): the sum
-// of a tile stays on chip until it is written once.
+// All three are the value gradient of the deformable-attention core. The
+// Pallas kernels built a one-hot match matrix of every entry of the row
+// against every destination of a tile and summed on the MXU, and the tiled
+// one sorted the entries by destination beforehand. What is kept is the grid
+// over (r, destination tile): the sum of a tile stays on chip until it is
+// written once; and, in rows_scatter_add_mxu, the one-hot product itself,
+// restricted to the entries that fall in the tile.
 //
 // Layouts: idx [R, N] int32; contrib [R, N, D] f32 (rows_scatter_add) or bf16
-// (rows_scatter_add_tiled); out [R, HW, D] f32, written whole by the kernel
-// (the caller allocates it uninitialized). D is 16 or 32; any other D is
-// refused with cudaErrorInvalidValue.
+// (rows_scatter_add_mxu, rows_scatter_add_tiled; 16-byte aligned); out
+// [R, HW, D] f32, written whole by the kernel (the caller allocates it
+// uninitialized). D is 16 or 32; any other D is refused with
+// cudaErrorInvalidValue.
 //
 // Bound on the H100: memory. Each payload byte is read once and each output
 // byte written once; the adds are one per payload element. At m@640, B = 8 on
@@ -80,6 +86,46 @@
 // shapes on the H100 (windows of 4096 and 8192 entries, batches of 8, T = 64
 // and 256, loads of 16 bytes a lane in the first kernel, runs summed straight
 // from device memory in the second): each was slower than the choice here.
+//
+// rows_scatter_add_mxu: the TPU kernel's one-hot product on the tensor cores,
+// over the tile's kept entries only (the walk above), with no atomic at all.
+// It replaces a kernel of one global f32 atomic a payload element (49 M a
+// backward into L2, behind a zero pass over the 68.8 MB output), and avoids
+// the compare-and-swap spin of shared f32 atomics on clustered destinations:
+// a hot pixel only lengthens its warp's list. The kept entries of a window
+// (the 8 warps' lists, taken in warp order) are staged kMmaStage = 128 at a
+// time, in two buffers so that one chunk is copied while the one before it
+// is summed: every thread copies payload rows with cp.async 16-byte copies
+// into rows padded to D * 2 + 16 bytes (which keeps ldmatrix free of bank
+// conflicts), and each entry's local destination into a byte array. Warp w
+// owns the tile's rows [16 w, 16 w + 16), all D columns, as D / 8 m16n8 f32
+// fragments in registers. From a chunk it takes only the entries that fall
+// in its rows (a ballot over the destination bytes, compacted in order into
+// a list of its own), 16 to a k-block: it builds the A fragment (16 rows x
+// 16 entries) in registers, bf16 1.0 where the entry's destination is the
+// fragment's row and 0 elsewhere; it loads B (16 entries x 16 columns a
+// time) with ldmatrix.trans, each lane giving the staged row of its entry
+// (past the warp's last entry a zero row), so that the gather costs no copy;
+// and issues mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32. Each warp picks
+// its own entries, and does not run over every k-block of the chunk: at
+// uniform destinations nearly every block holds an entry of each warp, so a
+// vote that skips empty blocks would leave 7 of 8 products of zeros. The
+// chunk size and the two buffers were chosen by timing
+// variants (64 to 256 entries, 2 to 4 buffers): none was clearly faster,
+// and the larger ones cost occupancy. A chunk's
+// products are summed in the tensor cores from zero and then added to the
+// tile's accumulator with IEEE f32 adds, so that no tensor-core sum runs over
+// more than one chunk. The products with the one-hot are exact; the sums are
+// f32 in another order than the CPU's, the same from run to run (no
+// atomics). After the last window each warp writes its 16 rows, zero rows
+// too, through shared memory with 16-byte stores. A non-finite payload
+// element spreads (0 x inf) to the 16 rows of its warp, as it did across a
+// tile on the TPU. mma.sync and not wgmma: a warp's 16-row slice and
+// 16-entry k-blocks are far smaller than wgmma's 64-row warpgroup tiles; a
+// 64-row sub-tile a warpgroup is left to try. nvcc -Xptxas -v for sm_90a:
+// 64 registers, the launch bound of 4 CTAs an SM (28 bytes of spill stores
+// at D = 32, none at 16); 47,440 bytes of shared memory at D = 32 (39,216 at
+// 16): 4 CTAs (32 warps) an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -286,8 +332,194 @@ rows_scatter_add_tile_sorted_kernel(const int* __restrict__ idx,
   }
 }
 
+constexpr int kMmaStage = 128;  // entries a staging buffer of the mma kernel holds
+constexpr int kMmaBufs = 2;     // its staging buffers: kMmaBufs - 1 chunks in flight
+constexpr int kMmaBlocks = 4;   // CTAs an SM for the mma kernel (<= 64 registers)
+static_assert(kMmaStage % 32 == 0 && kMmaStage <= 256, "a chunk entry must fit a byte");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&b)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += A (16 x 16 bf16, a) * B (16 x 8 bf16, b0 b1), f32 c
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two one-hot A elements as bf16 (1.0 = 0x3f80): low half where row `lo` is
+// `row`, high half where row `hi` is
+__device__ __forceinline__ unsigned onehot2(unsigned lo, unsigned hi, unsigned row) {
+  return (lo == row ? 0x3f80u : 0u) | (hi == row ? 0x3f800000u : 0u);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kMmaBlocks)
+rows_scatter_add_mma_kernel(const int* __restrict__ idx, const __nv_bfloat16* __restrict__ contrib,
+                            float* __restrict__ out, int N, int HW, int tiles) {
+  constexpr int RS = D * 2 + 16;  // bytes a staged row (the pad spreads ldmatrix's rows on banks)
+  constexpr int PC = D * 2 / 16;  // 16-byte pieces a payload row
+  constexpr int NF = D / 8;       // m16n8 fragments of a warp's 16 rows
+  constexpr int OS = D + 4;       // floats a row of the output staging
+  static_assert(kWarps * 16 == kTile, "a warp owns 16 rows of the tile");
+  static_assert(kWarps * 16 * OS * 4 <= kWarps * kSpan * 4, "the output staging fits the lists");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* lists = reinterpret_cast<int*>(smem);                    // [kWarps, kSpan]
+  unsigned char* stage = smem + kWarps * kSpan * sizeof(int);   // [kMmaBufs][kMmaStage][RS]
+  unsigned char* zero_row = stage + kMmaBufs * kMmaStage * RS;  // [RS] zeros
+  unsigned char* dsts = zero_row + RS;                          // [kMmaBufs][kMmaStage] local rows
+  unsigned short* mine =                                        // [kWarps][kMmaStage]
+      reinterpret_cast<unsigned short*>(dsts + kMmaBufs * kMmaStage);
+  __shared__ int counts[kWarps];
+  const int r = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * kTile;
+  const int hi = min(t0 + kTile, HW);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const unsigned below = (1u << lane) - 1u;
+  int* list = lists + warp * kSpan;
+  unsigned short* mine_w = mine + warp * kMmaStage;
+  const int* idx_row = idx + (long long)r * N;
+  const __nv_bfloat16* src = contrib + (long long)r * N * D;
+  if (threadIdx.x < RS / 16)
+    reinterpret_cast<uint4*>(zero_row)[threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+
+  float acc[NF][4];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += kWindow) {
+    const int count = compact_span(idx_row, N, n0, t0, hi, warp, lane, list);
+    if (lane == 0) counts[warp] = count;
+    __syncthreads();
+    int off[kWarps + 1];  // where each warp's list starts among the window's kept entries
+    off[0] = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) off[w + 1] = off[w] + counts[w];
+    const int total = off[kWarps];
+    const int chunks = (total + kMmaStage - 1) / kMmaStage;
+
+    // entries [c kMmaStage, ...) of the window (the warps' lists in warp order)
+    // into buffer c % kMmaBufs: payload rows by cp.async, local rows as bytes;
+    // one cp.async group a call, empty past the last chunk
+    auto stage_chunk = [&](int c) {
+      if (c < chunks) {
+        const int e0 = c * kMmaStage, cnt = min(kMmaStage, total - e0);
+        unsigned char* buf = stage + (c % kMmaBufs) * kMmaStage * RS;
+        unsigned char* dbuf = dsts + (c % kMmaBufs) * kMmaStage;
+        for (int i = threadIdx.x; i < cnt * PC; i += kThreads) {
+          const int e = i / PC, pc = i % PC, es = e0 + e;
+          int w = 0, base = 0;
+#pragma unroll
+          for (int k = 1; k < kWarps; ++k)
+            if (es >= off[k]) w = k, base = off[k];
+          const int p = lists[w * kSpan + es - base];
+          cp_async16(buf + e * RS + pc * 16, src + (long long)(n0 + (p >> kJBits)) * D + pc * 8);
+          if (pc == 0) dbuf[e] = (unsigned char)(p & kJMask);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+
+    for (int c = 0; c < kMmaBufs - 1; ++c) stage_chunk(c);
+    for (int c = 0; c < chunks; ++c) {
+      stage_chunk(c + kMmaBufs - 1);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmaBufs - 1) : "memory");  // chunk c landed
+      __syncthreads();
+      const int cnt = min(kMmaStage, total - c * kMmaStage);
+      const unsigned char* buf = stage + (c % kMmaBufs) * kMmaStage * RS;
+      const unsigned char* dbuf = dsts + (c % kMmaBufs) * kMmaStage;
+
+      // this warp's entries of the chunk, in order: (row in the warp's 16) << 8 | entry
+      int nm = 0;
+#pragma unroll
+      for (int k = 0; k < kMmaStage / 32; ++k) {
+        const int e = k * 32 + lane;
+        const unsigned dj = e < cnt ? dbuf[e] : 0xffu;
+        const bool hit = (dj >> 4) == (unsigned)warp;
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (hit) mine_w[nm + __popc(m & below)] = (unsigned short)((dj & 15u) << 8 | e);
+        nm += __popc(m);
+      }
+      __syncwarp();
+
+      // one-hot products, 16 of this warp's entries a k-block: A (16 rows x
+      // 16 entries) from the entries' rows, B (16 entries x 16 columns a
+      // ldmatrix) gathered from their staged rows; past the last entry, a
+      // zero row and no row
+      float part[NF][4];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+      for (int kb = 0; kb < nm; kb += 16) {
+        const unsigned short* blk = mine_w + kb;
+        const int left = nm - kb;
+        const unsigned r0 = 2 * tq < left ? blk[2 * tq] >> 8 : 0xffu;
+        const unsigned r1 = 2 * tq + 1 < left ? blk[2 * tq + 1] >> 8 : 0xffu;
+        const unsigned r8 = 2 * tq + 8 < left ? blk[2 * tq + 8] >> 8 : 0xffu;
+        const unsigned r9 = 2 * tq + 9 < left ? blk[2 * tq + 9] >> 8 : 0xffu;
+        const unsigned a[4] = {onehot2(r0, r1, g), onehot2(r0, r1, g + 8), onehot2(r8, r9, g),
+                               onehot2(r8, r9, g + 8)};
+        const int kk = (lane >> 3 & 1) * 8 + (lane & 7);  // the entry whose row this lane addresses
+        const unsigned char* row =
+            (kk < left ? buf + (blk[kk] & 0xffu) * RS : zero_row) + (lane >> 4) * 16;
+#pragma unroll
+        for (int j = 0; j < NF / 2; ++j) {  // 16 columns a time
+          unsigned b[4];
+          ldmatrix_x4_trans(b, row + j * 32);
+          mma_bf16(part[2 * j], a, b[0], b[1]);
+          mma_bf16(part[2 * j + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][k] += part[j][k];
+      __syncthreads();  // buffer c % kMmaBufs and the warps' entry lists are refilled
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // the empty groups
+    __syncthreads();  // counts and lists are refilled by the next window
+  }
+
+  // the warp's 16 rows through shared memory (the lists, free now), then 16-byte stores
+  float* rows = reinterpret_cast<float*>(lists) + warp * 16 * OS;
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    *reinterpret_cast<float2*>(rows + g * OS + j * 8 + 2 * tq) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(rows + (g + 8) * OS + j * 8 + 2 * tq) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+  __syncwarp();
+  const int first = t0 + warp * 16;
+  float4* dst = reinterpret_cast<float4*>(out + ((long long)r * HW + first) * D);
+#pragma unroll
+  for (int i = lane; i < 16 * D / 4; i += 32) {
+    const int row = i / (D / 4), c4 = i % (D / 4);
+    if (first + row < hi) dst[i] = *reinterpret_cast<const float4*>(rows + row * OS + c4 * 4);
+  }
+}
+
 template <int D>
 size_t tile_smem() { return (size_t)kTile * D * sizeof(float) + kWarps * kSpan * sizeof(int); }
+
+template <int D>
+size_t mma_smem() {
+  return kWarps * kSpan * sizeof(int) + kMmaBufs * kMmaStage * (D * 2 + 16 + 1) + (D * 2 + 16) +
+         kWarps * kMmaStage * sizeof(unsigned short);
+}
 
 size_t sorted_smem() {
   return (kWarps * kSpan + kTile * kWarps + kTile + 1 + kWindow) * sizeof(int);
@@ -323,6 +555,22 @@ extern "C" int rows_scatter_add(const void* idx, const void* contrib, void* out,
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, kThreads, smem, s>>>((const int*)idx, (const float*)contrib,
+                                                  (float*)out, N, HW, tiles);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rows_scatter_add_mxu(const void* idx, const void* contrib, void* out, int R, int N,
+                                    int HW, int D, void* stream) {
+  const long long blocks = grid_of(R, N, HW, D);
+  if (blocks < 0 || ((size_t)contrib & 15)) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return (int)cudaSuccess;
+  const int tiles = (HW + kTile - 1) / kTile;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto kernel = D == 32 ? rows_scatter_add_mma_kernel<32> : rows_scatter_add_mma_kernel<16>;
+  const size_t smem = D == 32 ? mma_smem<32>() : mma_smem<16>();
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>((const int*)idx, (const __nv_bfloat16*)contrib,
                                                   (float*)out, N, HW, tiles);
   return (int)cudaGetLastError();
 }

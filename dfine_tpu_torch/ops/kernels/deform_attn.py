@@ -18,6 +18,7 @@ import torch
 from . import _build
 
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
+MAX_POINTS, MAX_LEVELS = 16, 4  # what the kernel takes (csrc: kMaxPoints, kMaxLevels)
 
 
 def _bilinear_gather_level(v: torch.Tensor, h: int, w: int, loc: torch.Tensor) -> torch.Tensor:
@@ -88,8 +89,8 @@ def ms_deform_attn_fwd(
 ) -> torch.Tensor:
     """The sampling core: value [B, S, nhead, d] (bf16 or f32, d in {16, 32}),
     loc [B, Q, nhead, P, 2] f32, att [B, Q, nhead, P] f32 -> [B, Q, nhead*d]
-    f32. CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    f32, with P <= 16 over at most 4 levels. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if value.device.type == "cpu":
         return ms_deform_attn_fwd_plain(value, spatial_shapes, loc, att, num_points)
     if value.device.type != "cuda":
@@ -107,10 +108,15 @@ def ms_deform_attn_fwd(
                          f"{tuple(loc.shape)}, att {tuple(att.shape)}")
     if sum(num_points) != p or len(num_points) != len(spatial_shapes):
         raise ValueError("num_points must give one count per level summing to P")
+    if p > MAX_POINTS or len(spatial_shapes) > MAX_LEVELS:
+        raise ValueError(f"at most {MAX_POINTS} points and {MAX_LEVELS} levels, got {p} and "
+                         f"{len(spatial_shapes)}")
     if sum(h * w for h, w in spatial_shapes) != s:
         raise ValueError("spatial_shapes must cover the value rows")
     if not (value.is_contiguous() and loc.is_contiguous() and att.is_contiguous()):
         raise ValueError("ms_deform_attn_fwd takes contiguous tensors")
+    if value.data_ptr() % 16 or loc.data_ptr() % 8:
+        raise ValueError("ms_deform_attn_fwd takes value 16-byte and loc 8-byte aligned")
     if loc.device != value.device or att.device != value.device:
         raise ValueError("value, loc and att must be on one device")
     info, start = [], 0

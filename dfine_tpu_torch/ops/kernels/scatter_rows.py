@@ -6,7 +6,8 @@ accumulation, dropping entries with idx outside [0, hw):
 - ``rows_scatter_add`` (replaces :64-97): f32 payload, summed per
   destination tile in shared memory (``csrc/rows_scatter_add_tile.cu``);
 - ``rows_scatter_add_mxu`` (replaces :137-185): each contribution rounded
-  once to bf16, global fp32 atomics (``csrc/rows_scatter_add.cu``);
+  once to bf16, the one-hot product of each destination tile's entries
+  summed in f32 on the tensor cores (``csrc/rows_scatter_add_tile.cu``);
 - ``rows_scatter_add_tiled`` (replaces :226-283): the same bf16 payload,
   counting-sorted by destination inside each tile and summed in increasing
   n (``csrc/rows_scatter_add_tile.cu``): bit-equal from run to run and to
@@ -25,7 +26,7 @@ import torch
 
 from . import _build
 
-TILE_WIDTHS = (16, 32)  # the head dims the tile kernels take (n: 16, s/m/l/x: 32)
+TILE_WIDTHS = (16, 32)  # the head dims the kernels take (n: 16, s/m/l/x: 32)
 
 
 def rows_scatter_add_plain(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch.Tensor:
@@ -54,7 +55,7 @@ def _fn(source: str, name: str):
     return fn
 
 
-def _check(name: str, idx: torch.Tensor, contrib: torch.Tensor, dtypes, widths=None) -> None:
+def _check(name: str, idx: torch.Tensor, contrib: torch.Tensor, dtypes) -> None:
     if idx.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {idx.device}")
     if idx.dtype != torch.int32 or contrib.dtype not in dtypes:
@@ -67,8 +68,10 @@ def _check(name: str, idx: torch.Tensor, contrib: torch.Tensor, dtypes, widths=N
         raise ValueError(f"{name} takes contiguous tensors")
     if contrib.device != idx.device:
         raise ValueError(f"{name}: idx and contrib must be on one device")
-    if widths is not None and contrib.shape[-1] not in widths:
-        raise ValueError(f"{name}: D = {contrib.shape[-1]} not supported, only {widths}")
+    if contrib.shape[-1] not in TILE_WIDTHS:
+        raise ValueError(f"{name}: D = {contrib.shape[-1]} not supported, only {TILE_WIDTHS}")
+    if contrib.data_ptr() % 16:
+        raise ValueError(f"{name}: contrib must be 16-byte aligned")
 
 
 def _launch(name: str, source: str, entry: str, args, device) -> None:
@@ -84,7 +87,7 @@ def rows_scatter_add(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch
     (f32 payload); entries with idx outside [0, hw) are dropped."""
     if idx.device.type == "cpu":
         return rows_scatter_add_plain(idx, contrib, hw)
-    _check("rows_scatter_add", idx, contrib, (torch.float32,), TILE_WIDTHS)
+    _check("rows_scatter_add", idx, contrib, (torch.float32,))
     r, n = idx.shape
     d = contrib.shape[-1]
     out = torch.empty((r, hw, d), dtype=torch.float32, device=idx.device)
@@ -96,15 +99,21 @@ def rows_scatter_add(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch
 
 def rows_scatter_add_mxu(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch.Tensor:
     """As ``rows_scatter_add`` with each contribution rounded once to bf16
-    (``contrib`` may come in f32 or already in bf16) and f32 accumulation."""
+    (``contrib`` may come in f32 or already in bf16) and f32 accumulation:
+    the one-hot products on the tensor cores, no atomics, so the sums come
+    in one order for given inputs (not the CPU's). A non-finite payload
+    element is not kept to its own destination: since 0 x inf is NaN, it
+    turns its column NaN in all 16 destination rows of its tile that one
+    warp owns (rows [16 k, 16 k + 16) of each 128-row tile); rows outside
+    that slice stay as finite as their own entries."""
     if idx.device.type == "cpu":
         return rows_scatter_add_bf16_plain(idx, contrib, hw)
     _check("rows_scatter_add_mxu", idx, contrib, (torch.float32, torch.bfloat16))
     payload = contrib.to(torch.bfloat16)
     r, n = idx.shape
     d = contrib.shape[-1]
-    out = torch.zeros((r, hw, d), dtype=torch.float32, device=idx.device)
-    _launch("rows_scatter_add_mxu", "rows_scatter_add", "rows_scatter_add_bf16",
+    out = torch.empty((r, hw, d), dtype=torch.float32, device=idx.device)
+    _launch("rows_scatter_add_mxu", "rows_scatter_add_tile", "rows_scatter_add_mxu",
             (idx.data_ptr(), payload.data_ptr(), out.data_ptr(), r, n, hw, d), idx.device)
     rows_scatter_add_mxu.launches += 1
     return out
@@ -117,7 +126,7 @@ def rows_scatter_add_tiled(idx: torch.Tensor, contrib: torch.Tensor, hw: int) ->
     the CPU's ``rows_scatter_add_bf16_plain``."""
     if idx.device.type == "cpu":
         return rows_scatter_add_bf16_plain(idx, contrib, hw)
-    _check("rows_scatter_add_tiled", idx, contrib, (torch.float32, torch.bfloat16), TILE_WIDTHS)
+    _check("rows_scatter_add_tiled", idx, contrib, (torch.float32, torch.bfloat16))
     payload = contrib.to(torch.bfloat16)
     r, n = idx.shape
     d = contrib.shape[-1]

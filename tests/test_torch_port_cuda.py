@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_deform_cases import DEFORM_CASES, deform_case
 from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
 
 pytestmark = pytest.mark.cuda
@@ -36,18 +37,34 @@ def _inputs(dev, b, q, h, d, shapes, pts, value_dtype, seed=0, lo=-0.15, hi=1.15
 
 @pytest.mark.parametrize("d,shapes,pts", [(32, M_SHAPES, M_POINTS), (16, N_SHAPES, N_POINTS)])
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
-def test_deform_fwd_kernel_matches_plain(cuda, d, shapes, pts, value_dtype):
+@pytest.mark.parametrize("b,q", [(1, 300), (8, 500)])  # serving; the train step (200 CDN + 300)
+def test_deform_fwd_kernel_matches_plain(cuda, d, shapes, pts, value_dtype, b, q):
     """Same inputs (the plain version reads the bf16 value as f32 too);
     max abs error <= 1e-5 (summation order)."""
     from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
 
-    value, loc, att = _inputs(cuda, 2, 300, 8, d, shapes, pts, value_dtype)
+    value, loc, att = _inputs(cuda, b, q, 8, d, shapes, pts, value_dtype)
     before = ms_deform_attn_fwd.launches
     out = ms_deform_attn_fwd(value, shapes, loc, att, pts)
     torch.cuda.synchronize()
     assert ms_deform_attn_fwd.launches == before + 1
     ref = ms_deform_attn_fwd_plain(value, shapes, loc, att, pts)
     assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEFORM_CASES)
+def test_deform_fwd_kernel_on_cases(cuda, case, value_dtype):
+    """The inputs of the CPU parity test's cases (pixel edges and centres,
+    one level, head dim 16 with points (6, 6)): max abs error <= 1e-5."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+
+    value, shapes, loc, att, pts = deform_case(case)
+    value = torch.from_numpy(value).to(cuda, value_dtype)
+    loc, att = torch.from_numpy(loc).to(cuda), torch.from_numpy(att).to(cuda)
+    out = ms_deform_attn_fwd(value, shapes, loc, att, pts)
+    ref = ms_deform_attn_fwd_plain(value, shapes, loc, att, pts)
     assert (out - ref).abs().max().item() <= 1e-5
 
 
@@ -82,16 +99,24 @@ def test_scatter_kernel_matches_plain(cuda, d):
 
 
 def _kernels_of(fn):
-    """The number of device activities (kernels, fills, copies) of one call."""
+    """The number of device activities (kernels, fills, copies) of one call.
+    A profiler window in which CUPTI recorded no device activity at all (it
+    can drop a whole window when windows follow each other closely) is
+    taken again, up to three windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+        if n:
+            return n
+    return 0
 
 
 def _tile_case(dev, case, d):
@@ -107,13 +132,18 @@ def _tile_case(dev, case, d):
 
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("case", [*EDGE_CASES, "rows_1", "rows_100", "rows_129", "rows_1000"])
-@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_tiled"])
+@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_mxu",
+                                  "rows_scatter_add_tiled"])
 def test_tile_scatter_kernels_on_edge_cases(cuda, name, case, d):
     """The edge cases of the CPU tests and destination counts around the
     kernels' 128-row tiles: ``rows_scatter_add`` within atol 1e-4, rtol 1e-5
-    of its plain version; ``rows_scatter_add_tiled`` bit-equal to its plain
-    version on the CPU (the same sums in the same order) and to its own
-    second run."""
+    of its plain version; ``rows_scatter_add_mxu`` within atol 1e-5, rtol
+    1e-6 of its bf16 plain version (test_pallas_scatter.py:27-48), and atol
+    1e-3, rtol 1e-4 where a destination sums hundreds of entries
+    (``clustered``, ``dense_duplicates``, ``rows_1``): f32 sums of hundreds
+    of terms, taken in another order; ``rows_scatter_add_tiled`` bit-equal
+    to its plain version on the CPU (the same sums in the same order) and to
+    its own second run."""
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
 
     idx, contrib, hw = _tile_case(cuda, case, d)
@@ -124,13 +154,18 @@ def test_tile_scatter_kernels_on_edge_cases(cuda, name, case, d):
     if name == "rows_scatter_add":
         torch.testing.assert_close(out, sr.rows_scatter_add_plain(idx, contrib, hw),
                                    atol=1e-4, rtol=1e-5)
+    elif name == "rows_scatter_add_mxu":
+        many = case in ("clustered", "dense_duplicates", "rows_1")
+        torch.testing.assert_close(out, sr.rows_scatter_add_bf16_plain(idx, contrib, hw),
+                                   atol=1e-3 if many else 1e-5, rtol=1e-4 if many else 1e-6)
     else:
         assert torch.equal(out.cpu(), sr.rows_scatter_add_bf16_plain(idx.cpu(), contrib.cpu(), hw))
         assert torch.equal(out, fn(idx, contrib, hw))
 
 
 @pytest.mark.parametrize("d", [8, 64])
-@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_tiled"])
+@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_mxu",
+                                  "rows_scatter_add_tiled"])
 def test_tile_scatter_kernels_reject_other_widths(cuda, name, d):
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
 
@@ -165,7 +200,8 @@ def test_bf16_scatter_kernels_match_plain(cuda, name):
     bf16-rounded plain version at atol 1e-5, rtol 1e-6
     (test_pallas_scatter.py:48, :165); all-dropped gives exact zeros; every
     entry in one row agrees at atol 1e-3, rtol 1e-4 (a sum of 6000-12000
-    terms in another f32 order)."""
+    terms in another f32 order); one call is the kernel alone (no fill of
+    the output)."""
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
 
     fn = getattr(sr, name)
@@ -188,6 +224,32 @@ def test_bf16_scatter_kernels_match_plain(cuda, name):
     c32 = torch.randn((64, 6000, 32), device=cuda, generator=g)
     idx = torch.randint(-1, 400, (64, 6000), device=cuda, generator=g, dtype=torch.int32)
     torch.testing.assert_close(fn(idx, c32, 400), sr.rows_scatter_add_bf16_plain(idx, c32, 400),
+                               atol=1e-5, rtol=1e-6)
+    c16 = c32.bfloat16()
+    assert _kernels_of(lambda: fn(idx, c16, 400)) == 1
+
+
+def test_mxu_scatter_non_finite_stays_in_its_warps_rows(cuda):
+    """One inf payload element: its destination stays non-finite, and only
+    its column of the 16 rows that one warp owns (rows [32, 48) of the first
+    tile for destination 37) may turn NaN (0 x inf in the one-hot product);
+    every other element matches the bf16 plain version at atol 1e-5, rtol
+    1e-6."""
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    hw, dst, col = 400, 37, 5
+    idx = torch.randint(-1, hw, (4, 3000), device=cuda, generator=g, dtype=torch.int32)
+    contrib = torch.randn((4, 3000, 32), device=cuda, generator=g).bfloat16()
+    idx[1, 100] = dst
+    contrib[1, 100, col] = float("inf")
+    out = sr.rows_scatter_add_mxu(idx, contrib, hw)
+    assert not torch.isfinite(out[1, dst, col]).item()
+    spread = torch.zeros_like(out, dtype=torch.bool)
+    spread[1, 32:48, col] = True
+    assert torch.isfinite(out[~spread]).all().item()
+    torch.testing.assert_close(out[~spread],
+                               sr.rows_scatter_add_bf16_plain(idx, contrib, hw)[~spread],
                                atol=1e-5, rtol=1e-6)
 
 

@@ -1,0 +1,53 @@
+"""Inputs of the deformable-attention sampling core, shared by the CPU parity
+test (plain version against JAX) and the CUDA tests (kernel against plain).
+It imports numpy only, so that it loads on the card's machine, which has no
+JAX. This file holds no tests.
+
+Each case is (value [B, S, 8, d] f32, spatial_shapes, loc [B, Q, 8, P, 2]
+f32, att [B, Q, 8, P] f32 softmaxed, num_points), from a seed:
+
+- ``pixel_edges``: every location on a pixel edge, u = k / W (k = 0 .. W,
+  so 0 and 1 too), or on a pixel centre, u = (k + 0.5) / W, and the same for
+  v, per level: the bilinear weights are 0, 1/2 or 1, the border corners
+  fall just outside the map;
+- ``one_level``: one level (9 x 13) of 4 points;
+- ``n_points``: head dim 16 with points (6, 6) on two levels, as in the n
+  model.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+DEFORM_CASES = ("pixel_edges", "one_level", "n_points")
+HEADS = 8
+
+
+def _softmax(x):
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def deform_case(name: str, b: int = 2, q: int = 17, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    if name == "pixel_edges":
+        d, shapes, pts = 32, ((12, 10), (6, 5), (3, 3)), (3, 6, 3)
+    elif name == "one_level":
+        d, shapes, pts = 32, ((9, 13),), (4,)
+    elif name == "n_points":
+        d, shapes, pts = 16, ((10, 10), (5, 5)), (6, 6)
+    else:
+        raise KeyError(name)
+    s, p = sum(h * w for h, w in shapes), sum(pts)
+    value = rng.normal(size=(b, s, HEADS, d)).astype(np.float32)
+    loc = rng.uniform(-0.15, 1.15, (b, q, HEADS, p, 2)).astype(np.float32)
+    if name == "pixel_edges":
+        start = 0
+        for (h, w), n in zip(shapes, pts):
+            for axis, size in ((0, w), (1, h)):
+                grid = np.concatenate([np.arange(size + 1) / size,
+                                       (np.arange(size) + 0.5) / size]).astype(np.float32)
+                loc[:, :, :, start:start + n, axis] = rng.choice(grid, (b, q, HEADS, n))
+            start += n
+    att = _softmax(rng.normal(size=(b, q, HEADS, p)))
+    return value, shapes, loc, att, pts

@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 
 import test_torch_port_helpers  # noqa: F401  (thread count)
+from test_torch_port_deform_cases import DEFORM_CASES, deform_case
 from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
 
 
@@ -53,14 +54,20 @@ def _core_inputs(seed, b, q, h, d, shapes, pts):
     return value, loc, att.astype(np.float32)
 
 
-@pytest.mark.parametrize("d", [16, 32])
-def test_ms_deform_attn_core_plain_matches_jax(d):
-    """fp32 gathers on both sides; tolerance 1e-5 (summation order)."""
+@pytest.mark.parametrize("case", ["16", "32", *DEFORM_CASES])
+def test_ms_deform_attn_core_plain_matches_jax(case):
+    """fp32 gathers on both sides; tolerance 1e-5 (summation order). Cases
+    "16" and "32": three levels at that head dim, locations uniform in
+    [-0.15, 1.15]; the others are those of ``test_torch_port_deform_cases``
+    (pixel edges and centres, one level, head dim 16 with points (6, 6))."""
     from dfine_tpu.ops.deform_attn import ms_deform_attn_core as jcore
     from dfine_tpu_torch.ops.deform_attn import ms_deform_attn, ms_deform_attn_core
 
-    shapes, pts = ((12, 10), (6, 5), (3, 3)), (3, 6, 3)
-    value, loc, att = _core_inputs(1, 2, 17, 8, d, shapes, pts)
+    if case in ("16", "32"):
+        shapes, pts = ((12, 10), (6, 5), (3, 3)), (3, 6, 3)
+        value, loc, att = _core_inputs(1, 2, 17, 8, int(case), shapes, pts)
+    else:
+        value, shapes, loc, att, pts = deform_case(case)
     ref = np.asarray(jcore(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(att), pts))
     args = (torch.from_numpy(value), shapes, torch.from_numpy(loc), torch.from_numpy(att), pts)
     np.testing.assert_allclose(ms_deform_attn_core(*args).numpy(), ref, rtol=1e-5, atol=1e-5)

@@ -10,15 +10,18 @@ Each case is (idx [R, N] int32, contrib [R, N, d] f32, hw), from a seed:
   first and last row of every 128-row (so also every 512-row) tile, and
   dropped ones at -1 and at hw;
 - ``dense_duplicates``: every index in [0, 4);
-- ``long_n``: N = 9000, more than two 4096-entry windows of the CUDA tile
-  kernels' walk.
+- ``long_n``: N = 9000, more than one 6144-entry window of the CUDA tile
+  kernels' walk;
+- ``clustered``: 300 entries of a row on one destination (37) and 300 on a
+  second in another 128-row tile (421), the rest uniform over [-1, hw], so
+  some dropped: the hot pixels of a train step's sampling points.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-EDGE_CASES = ("hw_edges", "dense_duplicates", "long_n")
+EDGE_CASES = ("hw_edges", "dense_duplicates", "long_n", "clustered")
 
 
 def scatter_case(name: str, d: int, seed: int = 0):
@@ -35,6 +38,12 @@ def scatter_case(name: str, d: int, seed: int = 0):
     elif name == "long_n":
         hw, r, n = 700, 2, 9000
         idx = rng.integers(-1, hw, (r, n))
+    elif name == "clustered":
+        hw, r, n = 700, 2, 1500
+        idx = rng.integers(-1, hw + 1, (r, n))
+        for row in idx:
+            hot = rng.permutation(n)[:600]
+            row[hot[:300]], row[hot[300:]] = 37, 421
     else:
         raise KeyError(name)
     contrib = rng.normal(size=(r, n, d)).astype(np.float32)
