@@ -36,7 +36,17 @@ Phases, each printed as one JSON line:
    each parameter's gradient against its own default, beside two more
    default steps as the controls;
 9. train_parity: one fp32 step on the card against the same step on the CPU:
-   losses, grad norm, the updated parameters and AdamW's first moment.
+   losses, grad norm, the updated parameters and AdamW's first moment;
+10. train_seg: the m det+seg train step (the ``masks`` loss on GT ellipses
+    [8, 100, 160, 160]) at 640 px, batch 8, bf16, with its launches per
+    step, every mask term of every set, the mask head's parameters and EMA
+    moved, and a profile with the device ms of the mask-logit products;
+11. train_seg_parity: ``train_parity`` for the det+seg step, at two batch
+    seeds;
+12. train_l_frozen: the l detect step with the trainer's l options (freeze
+    mask, per-group learning-rate peaks, ``b_accum_steps = 2``), batch 4,
+    bf16: frozen parameters, micro-steps, EMA and learning rates checked
+    over 4 micro-steps, then 8 timed and a profile.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, if every phase passed, the last line
@@ -71,6 +81,9 @@ GRAD_BATCH = 8
 TRAIN_BATCH, TRAIN_G, TRAIN_BOXES = 8, 100, (5, 40)
 TRAIN_QUERIES = 2 * TRAIN_G + QUERIES
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+MASK_HW = (IMG // 4, IMG // 4)  # the mask head's stride 4 at m
+# the l detect step with the trainer's l options: 4 micro-steps checked, 8 timed
+L_SIZE, L_BATCH, L_ACCUM, L_CHECKED, L_TIMED, L_DECODER_LAYERS = "l", 4, 2, 4, 8, 6
 PARITY_BATCH, PARITY_SEEDS = 2, range(5)
 SERVE_WARMUP, SERVE_FRAMES, SERVE_KEEP = 5, 30, 20
 DECODER_LAYERS = 4  # m: num_layers, eval_idx = -1
@@ -103,20 +116,36 @@ VARIANT_GRAD_REL = {"fp32": 3e-2, "bf16": 5e-2}
 # and by 21 % in the fp32 mxu step; under bf16 by up to 6 times their norm
 # in the controls). Their readings are printed; they are held against JAX
 # by tests/test_torch_port_train_step.py and card against CPU by
-# train_parity.
+# train_parity and train_seg_parity.
 ROUNDING_SHARE, CONTROLS = 5e-4, 2
 NOUGHT_PARTS = (".lab.", "norm", ".bn.", "bbox_head", "reg_conf")
 # fp32 train step, card against CPU: loss terms, grad norm, updated parameters
 PARITY_LOSS_RTOL, PARITY_LOSS_ATOL, PARITY_GNORM_RTOL = 2e-4, 1e-6, 2e-3
-PARITY_STEP_ATOL, PARITY_FAR_SHARE = 2e-6, 0.005  # see phase_train_parity
+# AdamW's first step moves an element by lr * g / (|g| + 1e-8), so the two
+# sides' updates differ beyond PARITY_STEP_ATOL only where the first moments
+# differ in sign or one is within FLIP_MU_FLOOR of 0; any other such element
+# fails the run. The share of such sign changes: detect 0.25 % on the H100;
+# det+seg 0.49 % and 0.58 % at two batch seeds, where the backbone's first
+# moments, fed by the mask losses, differ more (1.9 % at most).
+PARITY_STEP_ATOL, FLIP_MU_FLOOR = 2e-6, 1e-7
+PARITY_FAR_SHARE = {"detect": 0.005, "det+seg": 0.01}
 # AdamW's first moment (0.1 x the clipped gradient) card against CPU, per
 # parameter outside rule (a): the share of the norm of the CPU's. The
 # location gradient of the deformable attention is piecewise constant and
 # jumps at pixel edges, and the two devices place a few sampling points on
-# either side of one, so the ``sampling_offsets`` get their own limit (5.6 %
-# at most on the H100); the one-element LAB parameters, each one sum over a
-# whole feature map, theirs (24 % at most; tensors 1.5 %).
-PARITY_MU_REL = {"tensor": 3e-2, "sampling_offsets": 0.1, "scalar": 0.5}
+# either side of one, so the ``sampling_offsets`` get their own limit (6.4 %
+# at most on the H100; the other leaves 1.9 %, the one-element output biases
+# of the quality heads 0.04 %).
+PARITY_MU_REL = {"tensor": 3e-2, "sampling_offsets": 0.1}
+# A LAB parameter's gradient is one sum over a whole feature map whose terms
+# cancel: on the H100 the stride-4 LAB scale that the mask losses reach kept
+# 1/129663 of its terms' magnitude, and its sum came 1.90 times the CPU's
+# apart while its terms agreed within 1.1 %. So each LAB parameter is held by
+# its terms (``lab_terms``): within the "tensor" limit, the gap of their sums
+# within that limit of their magnitude, and each side's sum its first moment
+# within TERMS_SUM_RTOL plus a float32 sum's rounding bound.
+TERMS_SUM_RTOL = 1e-2
+SEG_PARITY_SEEDS = 2  # the det+seg parity runs at two batch seeds
 GRAD_REL_TOL = 2e-4  # test_pallas_scatter.py:69-78
 TILE_ROWS = 128  # destination rows a CTA of csrc/rows_scatter_add_tile.cu (kTile)
 BOX_ATOL, MIN_MATCHED = 1e-3, 0.98
@@ -450,16 +479,23 @@ def phase_deform_fwd(res):
 
 
 def _kernels_of(fn) -> list:
-    """The device activities of one call of ``fn`` (torch.profiler), by name."""
+    """The device activities of one call of ``fn`` (torch.profiler), by name.
+    A profiler window in which CUPTI recorded no device activity at all (it
+    can drop a whole window when windows follow each other closely) is taken
+    again, up to three windows, as ``tests/test_torch_port_cuda.py`` does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted(e.key for e in _device_rows(prof) for _ in range(e.count))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in _device_rows(prof) for _ in range(e.count))
+        if names:
+            break
+    return names
 
 
 def _scatter(res, name):
@@ -758,35 +794,74 @@ def phase_gradient(res):
         raise AssertionError(f"gradient path: counts {counts} (want {want}), finite {finite}")
 
 
-def make_train_batch(batch: int, seed: int, device):
+def ellipse_masks(boxes: np.ndarray, valid: np.ndarray, hw) -> np.ndarray:
+    """[B, G, H, W] f32: the ellipse inscribed in each valid cxcywh box."""
+    h, w = hw
+    y = ((np.arange(h) + 0.5) / h).astype(np.float32)[:, None]
+    x = ((np.arange(w) + 0.5) / w).astype(np.float32)[None, :]
+    cx, cy, bw, bh = (boxes[..., i][..., None, None].astype(np.float32) for i in range(4))
+    inside = ((x - cx) / (bw / 2)) ** 2 + ((y - cy) / (bh / 2)) ** 2 <= 1.0
+    return (inside & valid[..., None, None]).astype(np.float32)
+
+
+def make_train_batch(batch: int, seed: int, device, masks: bool = False):
     """Images of uniform noise and ``TRAIN_G`` target slots of which 5-40 per
-    image are valid boxes (cxcywh inside the frame), drawn from ``seed``."""
+    image are valid boxes (cxcywh inside the frame), drawn from ``seed``;
+    with ``masks``, the segment targets: the ellipse inscribed in each valid
+    box at the mask head's size (stride 4), and mask_valid = valid."""
     import torch
 
     rng = np.random.default_rng(seed)
     n_valid = rng.integers(TRAIN_BOXES[0], TRAIN_BOXES[1] + 1, batch)
     wh = rng.uniform(0.03, 0.4, (batch, TRAIN_G, 2))
     cxcy = rng.uniform(wh / 2, 1 - wh / 2)
+    boxes = np.concatenate([cxcy, wh], -1).astype(np.float32)
+    valid = np.arange(TRAIN_G)[None] < n_valid[:, None]
     targets = {
         "labels": torch.from_numpy(rng.integers(0, NUM_CLASSES, (batch, TRAIN_G))),
-        "boxes": torch.from_numpy(np.concatenate([cxcy, wh], -1).astype(np.float32)),
-        "valid": torch.from_numpy(np.arange(TRAIN_G)[None] < n_valid[:, None])}
+        "boxes": torch.from_numpy(boxes), "valid": torch.from_numpy(valid)}
     images = torch.from_numpy(rng.uniform(size=(batch, 3, IMG, IMG)).astype(np.float32))
+    if masks:
+        targets["masks"] = torch.from_numpy(ellipse_masks(boxes, valid, MASK_HW))
+        targets["mask_valid"] = targets["valid"]
     return {"images": images.to(device), "targets": {k: v.to(device) for k, v in targets.items()}}
 
 
-def _train_setup(compute_dtype, model=None):
-    """A TrainState of the m detect model (fp32 parameters) and its step."""
+def _train_setup(compute_dtype, model=None, seg=False, optim=None, update_mask=None):
+    """A TrainState (fp32 parameters) and its step: the m detect model, or
+    ``model``; ``seg`` adds the ``masks`` loss (and builds the mask head)."""
     from dfine_tpu_torch.models.dfine import build_model
     from dfine_tpu_torch.train.criterion import CriterionConfig
     from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
     from dfine_tpu_torch.train.train_step import TrainState, make_train_step
 
     if model is None:
-        model = build_model(SIZE, NUM_CLASSES, False, device=DEV)
-    state = TrainState.create(model, build_optimizer(model, OptimConfig()))
-    step = make_train_step(CriterionConfig(num_classes=NUM_CLASSES), compute_dtype=compute_dtype)
+        model = build_model(SIZE, NUM_CLASSES, seg, device=DEV)
+    losses = ("vfl", "boxes", "local") + (("masks",) if seg else ())
+    state = TrainState.create(model, build_optimizer(model, optim or OptimConfig()))
+    step = make_train_step(CriterionConfig(num_classes=NUM_CLASSES, losses=losses),
+                           compute_dtype=compute_dtype, update_mask=update_mask)
     return state, step
+
+
+@contextlib.contextmanager
+def captured_losses(out: list):
+    """Keep, in ``out``, every loss term (detached) of each train step run
+    while the context is open: the step's metrics hold the final set's only."""
+    from dfine_tpu_torch.train import train_step as ts
+
+    crit = ts.criterion_forward
+
+    def keep(*args, **kw):
+        losses = crit(*args, **kw)
+        out.append({k: v.detach() for k, v in losses.items()})
+        return losses
+
+    ts.criterion_forward = keep
+    try:
+        yield out
+    finally:
+        ts.criterion_forward = crit
 
 
 def _noise(batch: int, seed: int):
@@ -993,14 +1068,19 @@ def rel_norms(ref, other, keys):
     return {k: float((other[k] - ref[k]).norm() / ref[k].norm().clamp_min(1e-30)) for k in keys}
 
 
+def _rms_all(ref) -> float:
+    """The RMS over every element of the tensors of ``ref``."""
+    import torch
+
+    n_all = sum(t.numel() for t in ref.values())
+    return float(torch.cat([t.flatten() for t in ref.values()]).norm()) / math.sqrt(n_all)
+
+
 def rounding_exempt(ref):
     """The tensors of ``ref`` whose RMS is under ROUNDING_SHARE of the RMS
     over all of them (rule (a)), with their norms; raises if one of them is
     not of the kinds NOUGHT_PARTS names."""
-    import torch
-
-    n_all = sum(t.numel() for t in ref.values())
-    rms_all = float(torch.cat([t.flatten() for t in ref.values()]).norm()) / math.sqrt(n_all)
+    rms_all = _rms_all(ref)
     out = {k: float(t.norm()) for k, t in ref.items()
            if float(t.norm()) / math.sqrt(t.numel()) < ROUNDING_SHARE * rms_all}
     odd = [k for k in out if not any(part in k for part in NOUGHT_PARTS)]
@@ -1126,80 +1206,424 @@ def phase_train_parity(res):
     a gradient wrong in size shows even where the step's sign does not.
     The batch seed is the first of ``PARITY_SEEDS`` for which both sides'
     encoder heads select the same top-300 queries (exact score ties at the
-    boundary may be broken differently by the two topk kernels)."""
-    import torch
+    boundary may be broken differently by the two topk kernels). A LAB
+    parameter (one element) is held by its gradient's terms (``lab_terms``),
+    every other leaf by its first moment."""
+    _card_vs_cpu_step(res, "train_parity", res["train_init"], seg=False)
 
+
+def phase_train_seg_parity(res):
+    """``phase_train_parity`` for the m det+seg step (the ``masks`` loss, GT
+    ellipses at 160 x 160), at the first two batch seeds that select alike:
+    every loss term of every set, the mask terms included, and every leaf,
+    ``pixel_decoder.*`` and ``mask_head.*`` among them, by the same rules."""
+    _card_vs_cpu_step(res, "train_seg_parity", res["train_seg_init"], seg=True,
+                      n_seeds=SEG_PARITY_SEEDS)
+
+
+@contextlib.contextmanager
+def lab_terms(model, out: dict):
+    """While open, ``out[name]`` gets, in each backward, the terms whose sum
+    is the gradient of each LAB parameter ``name`` of ``model`` (y = scale *
+    x + bias): dL/dy * x for the scale, dL/dy for the bias, on the host."""
+    from dfine_tpu_torch.models.layers import LearnableAffine
+
+    def keep(prefix):
+        def hook(mod, inp, y):
+            x = inp[0].detach()
+
+            def terms(g):
+                out[f"{prefix}.scale"] = (g * x).float().cpu()
+                out[f"{prefix}.bias"] = g.float().cpu()
+            y.register_hook(terms)
+        return hook
+
+    handles = [mod.register_forward_hook(keep(name)) for name, mod in model.named_modules()
+               if isinstance(mod, LearnableAffine)]
+    try:
+        yield out
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _card_vs_cpu_step(res, phase, init, seg, n_seeds=1):
+    """The parity steps at the first ``n_seeds`` batch seeds that select
+    alike; every seed's readings are printed before a failure is raised."""
     from dfine_tpu_torch.models.dfine import build_model
 
-    cpu_model = build_model(SIZE, NUM_CLASSES, False, device="cpu")
-    cpu_model.load_state_dict(res["train_init"])
+    cpu_model = build_model(SIZE, NUM_CLASSES, seg, device="cpu")
+    cpu_model.load_state_dict(init)
     noise = _noise(PARITY_BATCH, seed=4)
-    seed = None
+    seeds = []
     for cand in PARITY_SEEDS:
-        if _selected(cpu_model, 100 + cand, noise, "cpu") == _selected(cpu_model, 100 + cand,
-                                                                       noise, DEV):
-            seed = 100 + cand
-            break
-    if seed is None:
-        raise AssertionError(f"no batch seed of {list(PARITY_SEEDS)} gave the same selection")
+        if len(seeds) < n_seeds and (_selected(cpu_model, 100 + cand, noise, "cpu")
+                                     == _selected(cpu_model, 100 + cand, noise, DEV)):
+            seeds.append(100 + cand)
+    if len(seeds) < n_seeds:
+        raise AssertionError(f"{len(seeds)} batch seeds of {list(PARITY_SEEDS)} gave the same "
+                             f"selection, want {n_seeds}")
+    failures = []
+    for seed in seeds:
+        failures += _parity_at(phase, init, cpu_model, noise, seed, seg)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _sum_vs_first_moment(a, metrics, mu: float, clip: float) -> float:
+    """|0.1 x sum(a) x the clip factor - mu| over its limit: TERMS_SUM_RTOL
+    of |mu| plus a float32 sum's rounding bound, eps x log2(n) x the sum of
+    the magnitudes (the terms are summed in another order than autograd's)."""
+    scale = 0.1 * clip / max(metrics["grad_norm"], clip)
+    bound = TERMS_SUM_RTOL * abs(mu) + 2.0**-24 * math.log2(a.numel()) * scale * float(
+        a.abs().sum())
+    return abs(scale * float(a.sum()) - mu) / bound
+
+
+def _parity_at(phase, init, cpu_model, noise, seed, seg):
+    """One parity step at batch ``seed``; returns its failures."""
+    import torch
+
+    from dfine_tpu_torch.train.optim import OptimConfig
+
     out = {}
     for tag, dev in (("cpu", "cpu"), ("gpu", DEV)):
-        state, step = _train_setup(torch.float32, model=copy.deepcopy(cpu_model).to(dev))
+        state, step = _train_setup(torch.float32, model=copy.deepcopy(cpu_model).to(dev), seg=seg)
         t = time.perf_counter()
-        with query_selection(state.model) as chosen:
-            _, m = step(state, make_train_batch(PARITY_BATCH, seed, dev), dn_noise=noise.to(dev))
+        with query_selection(state.model) as chosen, captured_losses([]) as terms, \
+                lab_terms(state.model, {}) as fields:
+            _, m = step(state, make_train_batch(PARITY_BATCH, seed, dev, masks=seg),
+                        dn_noise=noise.to(dev))
         if dev != "cpu":
             sync()
+        m = {k: float(v) for k, v in m.items()}
+        if seg:  # every set's terms, not only the final set's
+            m.update({k: float(v) for k, v in terms[0].items()})
         adam = state.optimizer.adamw.state
-        out[tag] = ({k: float(v) for k, v in m.items()},
-                    {k: v.detach().cpu() for k, v in state.model.named_parameters()},
+        out[tag] = (m, {k: v.detach().cpu() for k, v in state.model.named_parameters()},
                     {k: adam[v]["exp_avg"].cpu() for k, v in state.model.named_parameters()},
-                    time.perf_counter() - t, chosen)
-    (m_cpu, p_cpu, mu_cpu, t_cpu, sel_cpu), (m_gpu, p_gpu, mu_gpu, _, sel_gpu) = (out["cpu"],
-                                                                                  out["gpu"])
+                    time.perf_counter() - t, chosen, fields)
+        del state
+    (m_cpu, p_cpu, mu_cpu, t_cpu, sel_cpu, f_cpu), (m_gpu, p_gpu, mu_gpu, _, sel_gpu, f_gpu) = (
+        out["cpu"], out["gpu"])
     if sel_cpu != sel_gpu:  # the step's own selection, not only the seed's probe
-        raise AssertionError("train parity: the two sides selected different queries")
+        return [f"{phase} seed {seed}: the two sides selected different queries"]
     loss_err = {k: abs(m_gpu[k] - v) / max(abs(v), 1e-12) for k, v in m_cpu.items()}
-    init = res["train_init"]
     lr, n_el, n_far, worst = 2e-5, 0, 0, 0.0  # AdamW's first step moves a parameter ~lr
+    far_by_leaf, unexplained = {}, {}
     for k, v in p_cpu.items():
         diff = (p_gpu[k] - v).abs()
         worst = max(worst, float(diff.max()))
-        n_far += int((diff > PARITY_STEP_ATOL).sum())
+        far = diff > PARITY_STEP_ATOL
+        n_far += int(far.sum())
         n_el += v.numel()
+        if far.any():
+            far_by_leaf[k] = int(far.sum())
+            # lr * g / (|g| + 1e-8) moves as far only where g changed sign
+            # or is within FLIP_MU_FLOOR of 0
+            same = (mu_cpu[k] * mu_gpu[k] > 0) & (torch.minimum(
+                mu_cpu[k].abs(), mu_gpu[k].abs()) >= FLIP_MU_FLOOR)
+            if (far & same).any():
+                unexplained[k] = int((far & same).sum())
     moved = sum(int(not torch.equal(p_gpu[k], init[k])) for k in p_gpu)
     mu_exempt = rounding_exempt(mu_cpu)
+    held = [k for k in mu_cpu if k not in mu_exempt]
     mu_rel = {c: {} for c in PARITY_MU_REL}
-    for k, r in rel_norms(mu_cpu, mu_gpu, [k for k in mu_cpu if k not in mu_exempt]).items():
-        cls = ("scalar" if mu_cpu[k].numel() == 1 else
-               "sampling_offsets" if "sampling_offsets" in k else "tensor")
-        mu_rel[cls][k] = r
-    emit({"phase": "train_parity", "what": f"{SIZE} detect fp32, batch {PARITY_BATCH}, card vs "
-          "CPU, one step", "batch_seed": seed, "same_selection": sel_cpu == sel_gpu,
+    for k, r in rel_norms(mu_cpu, mu_gpu, [k for k in held if k not in f_cpu]).items():
+        mu_rel["sampling_offsets" if "sampling_offsets" in k else "tensor"][k] = r
+    # a LAB parameter: its gradient's terms within the "tensor" limit, the
+    # gap of their sums within that limit of the sum of their magnitudes,
+    # and each side's sum its first moment (0.1 x the sum x the clip
+    # factor) within TERMS_SUM_RTOL, which shows that they are its terms
+    clip = OptimConfig().clip_max_norm
+    lab = {}
+    for k in [k for k in held if k in f_cpu]:
+        a_cpu, a_gpu = f_cpu[k].double(), f_gpu[k].double()
+        s_cpu, mag = float(a_cpu.sum()), float(a_cpu.abs().sum())
+        lab[k] = {"first_moment_rel": rel_norms(mu_cpu, mu_gpu, [k])[k],
+                  "terms_rel": float((a_gpu - a_cpu).norm() / a_cpu.norm()),
+                  "sum_gap_over_magnitude": abs(float(a_gpu.sum()) - s_cpu) / mag,
+                  "kappa": mag / max(abs(s_cpu), 1e-300),
+                  "sum_vs_first_moment": max(_sum_vs_first_moment(a, m, float(mu[k]), clip)
+                                             for a, m, mu in ((a_cpu, m_cpu, mu_cpu),
+                                                              (a_gpu, m_gpu, mu_gpu)))}
+    lab_limits = {"terms_rel": PARITY_MU_REL["tensor"],
+                  "sum_gap_over_magnitude": PARITY_MU_REL["tensor"], "sum_vs_first_moment": 1.0}
+    failures = [f"{phase} seed {seed} {k}: {r}" for k, r in lab.items()
+                if not all(r[c] <= lim for c, lim in lab_limits.items())]
+    extra = {}
+    if seg:
+        mask_part = {k: r for rel in mu_rel.values() for k, r in rel.items()
+                     if "pixel_decoder." in k or "mask_head." in k}
+        extra = {"mask_terms": sorted(k for k in m_cpu if "mask" in k),
+                 "mask_part_first_moment": {"n": len(mask_part),
+                                            "max_rel": max(mask_part.values(), default=0.0),
+                                            "worst": _worst(mask_part)}}
+        if not mask_part or len(extra["mask_terms"]) < 4:
+            failures.append(f"{phase}: mask terms {extra['mask_terms']}, "
+                            f"{len(mask_part)} mask-head leaves checked")
+    far_limit = PARITY_FAR_SHARE["det+seg" if seg else "detect"]
+    emit({"phase": phase, "what": f"{SIZE} {'det+seg' if seg else 'detect'} fp32, batch "
+          f"{PARITY_BATCH}, card vs CPU, one step", "batch_seed": seed,
+          "same_selection": sel_cpu == sel_gpu,
           "metrics_cpu": m_cpu, "metrics_gpu": m_gpu, "rel_err": loss_err,
           "param_max_abs_diff": worst, "param_share_beyond_step_atol": n_far / n_el,
-          "step_atol": PARITY_STEP_ATOL, "far_share_limit": PARITY_FAR_SHARE,
+          "step_atol": PARITY_STEP_ATOL, "far_share_limit": far_limit,
+          "far_by_leaf": _worst(far_by_leaf), "far_unexplained": unexplained,
           "params_moved": moved, "cpu_step_seconds": t_cpu,
           "loss_rtol": PARITY_LOSS_RTOL, "grad_norm_rtol": PARITY_GNORM_RTOL,
           "first_moment": {c: {"n": len(r), "max_rel": max(r.values(), default=0.0),
                                "median_rel": float(np.median(list(r.values()) or [0.0])),
                                "worst": _worst(r), "tol": PARITY_MU_REL[c]}
                            for c, r in mu_rel.items()},
-          "first_moment_exempt_rule_a": mu_exempt})
+          "lab_terms": {"n": len(lab), "limits": lab_limits,
+                        **{c: {"max": max((r[c] for r in lab.values()), default=0.0),
+                               "worst": _worst({k: r[c] for k, r in lab.items()}, 3)}
+                           for c in ("first_moment_rel", "terms_rel", "sum_gap_over_magnitude",
+                                     "kappa", "sum_vs_first_moment")}},
+          "lab_terms_all": lab, "first_moment_exempt_rule_a": mu_exempt, **extra})
     for k, v in m_cpu.items():
         tol = PARITY_GNORM_RTOL if k == "grad_norm" else PARITY_LOSS_RTOL
         if abs(m_gpu[k] - v) > tol * abs(v) + (0 if k == "grad_norm" else PARITY_LOSS_ATOL):
-            raise AssertionError(f"train parity {k}: card {m_gpu[k]} vs CPU {v}")
+            failures.append(f"{phase} seed {seed} {k}: card {m_gpu[k]} vs CPU {v}")
     # AdamW's first step is lr * g / (|g| + 1e-8): a gradient within rounding
     # noise of zero may take the other sign on the other device (2 lr apart)
-    if n_far > PARITY_FAR_SHARE * n_el or worst > 2 * lr + PARITY_STEP_ATOL:
-        raise AssertionError(f"train parity params: {n_far} of {n_el} beyond "
-                             f"{PARITY_STEP_ATOL}, max {worst}")
+    if n_far > far_limit * n_el or worst > 2 * lr + PARITY_STEP_ATOL or unexplained:
+        failures.append(f"{phase} seed {seed} params: {n_far} of {n_el} beyond "
+                        f"{PARITY_STEP_ATOL}, max {worst}, without a sign change {unexplained}")
     if moved < 0.9 * len(p_gpu):
-        raise AssertionError(f"train parity: only {moved} parameters moved")
-    bad = {k: r for c, rel in mu_rel.items() for k, r in rel.items() if not r <= PARITY_MU_REL[c]}
+        failures.append(f"{phase} seed {seed}: only {moved} parameters moved")
+    bad = {k: r for c, rel in mu_rel.items() for k, r in rel.items()
+           if not r <= PARITY_MU_REL[c]}
     if bad:
-        raise AssertionError(f"train parity first moment: {_worst(bad)} beyond {PARITY_MU_REL}")
+        failures.append(f"{phase} seed {seed} first moment: {_worst(bad)} beyond "
+                        f"{PARITY_MU_REL}")
+    return failures
+
+
+@contextlib.contextmanager
+def captured_mask_products(calls: list):
+    """Keep, in ``calls``, the inputs of every mask-logit product of the
+    criterion (the matched embeddings against ``mask_feat``) while the
+    context is open; each call still computes its product."""
+    from dfine_tpu_torch.train import criterion
+
+    fn = criterion.mask_logits
+
+    def keep(embed, q_idx, mask_feat):
+        calls.append((embed.detach(), q_idx, mask_feat.detach()))
+        return fn(embed, q_idx, mask_feat)
+
+    criterion.mask_logits = keep
+    try:
+        yield calls
+    finally:
+        criterion.mask_logits = fn
+
+
+def _mask_product_ms(calls) -> dict:
+    """Device ms of the criterion's mask-logit products on the inputs one
+    train step gave them: forward alone, and forward + backward of a sum
+    over the logits (the two gradients the step takes through them)."""
+    import torch
+
+    from dfine_tpu_torch.train.criterion import mask_logits
+
+    fwd = bwd = 0.0
+    shapes = []
+    for embed, q_idx, feat in calls:
+        e, f = embed.clone().requires_grad_(), feat.clone().requires_grad_()
+        g = torch.ones((), device=e.device)
+
+        def both():
+            e.grad = f.grad = None
+            (mask_logits(e, q_idx, f).sum() * g).backward()
+
+        fwd += timings("", lambda: mask_logits(embed, q_idx, feat), 20)["ms"]
+        bwd += timings("", both, 10)["ms"]
+        shapes.append({"embed": list(embed.shape), "q_idx": list(q_idx.shape),
+                       "mask_feat": list(feat.shape), "dtype": str(embed.dtype)})
+    return {"forward_ms": fwd, "forward_backward_ms": bwd, "calls": len(calls), "inputs": shapes}
+
+
+def phase_train_seg(res):
+    """The m det+seg train step on the card: bf16 autocast, fp32 parameters,
+    the ``masks`` loss on GT ellipses [8, 100, 160, 160] made on the host
+    and moved to the card before the step."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    state, step = _train_setup(torch.bfloat16, seg=True)
+    res["train_seg_init"] = {k: v.detach().cpu().clone()
+                             for k, v in state.model.state_dict().items()}
+    batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV, masks=True)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, gen)
+    sync()
+    mask_part = [k for k, _ in state.model.named_parameters()
+                 if k.startswith(("decoder.pixel_decoder.", "decoder.mask_head."))]
+    p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    e0 = {k: v.detach().clone() for k, v in state.ema.named_parameters()}
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+            "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+    times, per_step, total, terms = [], [], {k: 0 for k in want}, []
+    torch.cuda.reset_peak_memory_stats()
+    with captured_losses(terms):
+        for _ in range(TRAIN_STEPS):
+            reset_launch_counts()  # the main path of this phase: one det+seg train step
+            t = time.perf_counter()
+            step(state, batch, gen)
+            sync()
+            times.append(time.perf_counter() - t)
+            counts = launch_counts()
+            per_step.append(counts)
+            for k in total:
+                total[k] += counts[k]
+    res["train_seg_counts"] = total
+    first, last = ({k: float(v) for k, v in t_.items()} for t_ in (terms[0], terms[-1]))
+    n_dn = DECODER_LAYERS - 1  # with masks the last DN layer is "_dn_final"
+    mask_keys = [f"loss_mask_{w}{suf}" for w in ("bce", "dice")
+                 for suf in ([""] + [f"_aux_{i}" for i in range(DECODER_LAYERS - 1)]
+                             + [f"_dn_{i}" for i in range(n_dn)] + ["_dn_final"])]
+    missing = [k for k in mask_keys if k not in last]
+    finite = all(np.isfinite(list(t_.values())).all() for t_ in (first, last))
+    p50, p90 = percentiles(times)
+    moved = sum(int(not torch.equal(p0[k], v)) for k, v in state.model.named_parameters())
+    mask_moved = sum(int(not torch.equal(p0[k], state.model.get_parameter(k)))
+                     for k in mask_part)
+    ema_moved = sum(int(not torch.equal(e0[k], v)) for k, v in state.ema.named_parameters())
+    ema_mask_moved = sum(int(not torch.equal(e0[k], state.ema.get_parameter(k)))
+                         for k in mask_part)
+    emit({"phase": "train_seg", "model": f"{SIZE} det+seg {IMG}px, bf16 autocast, fp32 params",
+          "batch": TRAIN_BATCH, "gt_slots": TRAIN_G, "gt_masks": [TRAIN_BATCH, TRAIN_G, *MASK_HW],
+          "steps": TRAIN_STEPS, "step_p50_ms": p50, "step_p90_ms": p90,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "launches_per_step": per_step[0], "launches_total": total,
+          "loss_terms_first": first, "loss_terms_last": last,
+          "mask_terms_expected": len(mask_keys), "mask_terms_missing": missing,
+          "terms_finite": finite, "params_moved": moved, "n_params": len(p0),
+          "mask_params_moved": mask_moved, "n_mask_params": len(mask_part),
+          "ema_moved": ema_moved, "ema_mask_moved": ema_mask_moved})
+    with captured_mask_products([]) as calls:
+        prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
+    products = _mask_product_ms(calls)
+    emit({"phase": "train_seg_profile", "what": "one det+seg train step", **prof,
+          "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50,
+          "mask_products": products})
+    del state, batch
+    torch.cuda.empty_cache()
+    bad = [c for c in per_step if c != want]
+    if bad or missing or not finite:
+        raise AssertionError(f"train_seg: counts {bad[:1]} (want {want}), mask terms missing "
+                             f"{missing}, finite {finite}")
+    if (moved < 0.9 * len(p0) or mask_moved != len(mask_part) or ema_moved < 0.9 * len(p0)
+            or ema_mask_moved != len(mask_part)):
+        raise AssertionError(f"train_seg: {moved} params ({mask_moved} of {len(mask_part)} of "
+                             f"the mask head) and {ema_moved} EMA tensors moved of {len(p0)}")
+
+
+def phase_train_l_frozen(res):
+    """The l detect train step with the JAX trainer's l options: the freeze
+    mask (backbone norms and stem), per-group learning-rate peaks and
+    ``b_accum_steps = 2``, bf16, batch 4. Over 4 micro-steps: frozen
+    parameters bit-unchanged; the others unchanged after micro-steps 1 and
+    3, and after 2 and 4 moved wherever their mean gradient is nonzero; the
+    EMA changed only after 2 and 4; each group's learning rate that of its
+    schedule at the optimizer's count; 6 + 18 launches a micro-step. Then 8
+    timed micro-steps and a profile of two."""
+    import torch
+
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dfine_tpu_torch.train.optim import OptimConfig, freeze_mask, onecycle
+
+    model = build_model(L_SIZE, NUM_CLASSES, False, device=DEV)
+    mask = freeze_mask(model, freeze_backbone_norm=True, freeze_stem=True)
+    cfg = OptimConfig(per_group_max_lr=True, b_accum_steps=L_ACCUM)
+    state, step = _train_setup(torch.bfloat16, model=model, optim=cfg, update_mask=mask)
+    opt = state.optimizer
+    peaks = {"backbone": onecycle(2 * cfg.backbone_lr, cfg), "rest": onecycle(2 * cfg.base_lr, cfg)}
+    frozen = {k for k, keep in mask.items() if not keep}
+    batch = make_train_batch(L_BATCH, seed=9, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    want = {"ms_deform_attn_fwd": L_DECODER_LAYERS,
+            "rows_scatter_add": L_DECODER_LAYERS * len(M_SHAPES),
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+    checks, failures, per_step, times = [], [], [], []
+    total = {k: 0 for k in want}
+
+    def micro_step():
+        reset_launch_counts()  # the main path of this phase: one micro-step
+        t = time.perf_counter()
+        _, m = step(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t)
+        counts = launch_counts()
+        per_step.append(counts)
+        for k in total:
+            total[k] += counts[k]
+        return m
+
+    for micro in range(1, L_CHECKED + 1):
+        p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        e0 = {k: v.detach().clone() for k, v in state.ema.state_dict().items()}
+        m = micro_step()
+        stepped = micro % L_ACCUM == 0
+        changed = {k for k, v in model.named_parameters() if not torch.equal(p0[k], v)}
+        live = {k for k, v in model.named_parameters()
+                if k not in frozen and v.grad is not None and bool(v.grad.any())}
+        ema_changed = sum(int(not torch.equal(e0[k], v))
+                          for k, v in state.ema.state_dict().items() if v.is_floating_point())
+        lrs = {g["group"]: g["lr"] for g in opt.adamw.param_groups}
+        want_lr = {g: peaks["backbone" if g.startswith("backbone") else "rest"](opt.count - 1)
+                   for g in lrs} if stepped else None  # set only when the optimizer steps
+        check = {"micro_step": micro, "optimizer_count": opt.count, "stepped": stepped,
+                 "grad_norm": float(m["grad_norm"]), "loss": float(m["loss"]),
+                 "changed": len(changed), "frozen_changed": len(changed & frozen),
+                 "trainable": len(mask) - len(frozen), "with_nonzero_mean_grad": len(live),
+                 "live_unmoved": sorted(live - changed)[:5], "ema_changed": ema_changed,
+                 "ema_tensors": sum(int(v.is_floating_point()) for v in e0.values()),
+                 "lr": lrs, "lr_want": want_lr, "launches": per_step[-1]}
+        checks.append(check)
+        if changed & frozen:
+            failures.append(f"micro {micro}: frozen moved {sorted(changed & frozen)[:3]}")
+        if stepped and (live - changed or len(live) < 0.9 * (len(mask) - len(frozen))):
+            failures.append(f"micro {micro}: {len(live - changed)} of {len(live)} live "
+                            "parameters did not move")
+        if not stepped and changed:
+            failures.append(f"micro {micro}: {len(changed)} parameters moved between steps")
+        n_float = sum(int(v.is_floating_point()) for v in e0.values())
+        if (ema_changed < 0.5 * n_float) if stepped else ema_changed:
+            failures.append(f"micro {micro}: EMA changed {ema_changed} of {n_float} tensors, "
+                            f"stepped {stepped}")
+        if stepped and any(abs(lrs[g] - want_lr[g]) > 1e-12 * max(1.0, want_lr[g]) for g in lrs):
+            failures.append(f"micro {micro}: learning rates {lrs} want {want_lr}")
+    times.clear()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(L_TIMED):
+        micro_step()
+    res["train_l_counts"] = total
+    p50, p90 = percentiles(times)
+    emit({"phase": "train_l_frozen", "model": f"{L_SIZE} detect {IMG}px, bf16 autocast, fp32 "
+          "params, freeze_mask(norms, stem), per_group_max_lr", "batch": L_BATCH,
+          "b_accum_steps": L_ACCUM, "frozen_params": len(frozen), "n_params": len(mask),
+          "micro_steps_timed": L_TIMED, "micro_step_p50_ms": p50, "micro_step_p90_ms": p90,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "checks": checks, "launches_total": total})
+    prof = profile_window(lambda: (step(state, batch, gen), sync()), L_ACCUM, top=12)
+    emit({"phase": "train_l_frozen_profile", "what": "one micro-step (mean of one that "
+          "accumulates and one that steps)", **prof,
+          "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50})
+    del state, model, batch
+    torch.cuda.empty_cache()
+    bad = [c for c in per_step if c != want]
+    if bad:
+        failures.append(f"counts {bad[:1]}, want {want}")
+    if failures:
+        raise AssertionError("train_l_frozen: " + "; ".join(failures))
 
 
 def in_situ_ms(res, kernel: str):
@@ -1228,6 +1652,8 @@ def kernel_line(res):
          "replaces": "dfine_tpu/ops/deform_attn.py:72",  # XLA gather: no Pallas counterpart
          "launches": res["serving_counts"]["ms_deform_attn_fwd"],
          "train_launches": res["train_counts"]["ms_deform_attn_fwd"],
+         "train_seg_launches": res["train_seg_counts"]["ms_deform_attn_fwd"],
+         "train_l_launches": res["train_l_counts"]["ms_deform_attn_fwd"],
          "train_shape_ms": res["deform_train"]["ms"],
          "train_in_situ_ms": in_situ_ms(res, "ms_deform_attn_fwd_kernel"),
          "empty_launch_ms": d["empty_launch_ms"],
@@ -1238,6 +1664,8 @@ def kernel_line(res):
         {"name": name, "route": "cuda", "source": "dfine_tpu_torch/csrc/rows_scatter_add_tile.cu",
          "replaces": f"dfine_tpu/ops/pallas/scatter_rows.py:{line}",
          "launches": res[counts][name], "max_abs_err": res[name]["max_abs_err"],
+         "train_seg_launches": res["train_seg_counts"][name],
+         "train_l_launches": res["train_l_counts"][name],
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
          "library_ms": res[name]["library_ms"], "path": path,
@@ -1268,7 +1696,8 @@ def main() -> int:
     for fn in (phase_build, phase_deform_fwd, phase_scatter, phase_scatter_mxu,
                phase_scatter_tiled, phase_core_backward, phase_model, phase_serving,
                phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
-               phase_train_parity):
+               phase_train_parity, phase_train_seg, phase_train_seg_parity,
+               phase_train_l_frozen):
         t0 = time.perf_counter()
         try:
             fn(res)

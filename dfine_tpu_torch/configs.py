@@ -11,7 +11,7 @@ sub-dicts for backbone / encoder / decoder / loss / matcher.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+from typing import Any, Dict, Sequence, Tuple
 
 BASE: Dict[str, Any] = {
     "backbone": {"freeze_stem_only": True},
@@ -127,7 +127,13 @@ def _merge(base: dict, extra: dict) -> dict:
     return out
 
 
-def model_config(size: str) -> Dict[str, Any]:
+def model_config(size: str, overrides: Sequence[Tuple[str, Any]] = ()) -> Dict[str, Any]:
+    """The registry entry of ``size``, with ``overrides`` (("section.key",
+    value), ...) patched over it, as ``dfine_tpu/models/dfine.py:39-43`` does."""
     if size not in SIZES:
         raise KeyError(f"unknown model size {size!r}; choose from {sorted(SIZES)}")
-    return _merge(BASE, SIZES[size])
+    cfg = _merge(BASE, SIZES[size])
+    for path, value in overrides:
+        section, key = path.split(".")
+        cfg[section][key] = value
+    return cfg

@@ -7,8 +7,11 @@ reduced problem (the valid GT rows) per (set, image). That is one
 device-to-host copy, and so one synchronisation, per train step. (The JAX
 package solves on the device only because its TPU runtime has no host
 callbacks, ``dfine_tpu/ops/hungarian.py:1-33``.) The "go" union across sets
-is device code again. The focal class cost is the only one ported (the
-reference's default); one-to-many matching is not ported yet.
+is device code again. The class cost is the focal one (the reference's
+default) or, with ``use_focal_loss=False``, the softmax one;
+``match_one_to_many`` repeats the exact assignment k times with each
+round's queries blocked; no step calls it yet (the reference's
+``return_topk`` has no caller either).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class MatcherConfig:
     cost_giou: float = 2.0
     alpha: float = 0.25
     gamma: float = 2.0
+    use_focal_loss: bool = True
 
 
 def matching_cost(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
@@ -39,15 +43,19 @@ def matching_cost(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                   cfg: MatcherConfig) -> torch.Tensor:
     """Dense cost [..., B, G, Q] (rows GT slots, columns queries) of logits
     [..., B, Q, C] and boxes [..., B, Q, 4] against labels [..., B, G],
-    boxes [B, G, 4]: focal class cost + L1 + -GIoU; invalid GT rows are 0."""
+    boxes [B, G, 4]: class cost (focal, or softmax without ``use_focal_loss``)
+    + L1 + -GIoU; invalid GT rows are 0."""
     logits = pred_logits.float()
     boxes = pred_boxes.float()
     tboxes = tgt_boxes.float()
     idx = tgt_labels.long()[..., None, :].expand(*logits.shape[:-1], tgt_labels.shape[-1])
-    p = torch.gather(torch.sigmoid(logits), -1, idx)  # [..., B, Q, G]
-    neg = (1 - cfg.alpha) * (p**cfg.gamma) * (-torch.log1p(-(p - 1e-8)))
-    pos = cfg.alpha * ((1 - p) ** cfg.gamma) * (-torch.log(p + 1e-8))
-    cost_class = pos - neg
+    if cfg.use_focal_loss:
+        p = torch.gather(torch.sigmoid(logits), -1, idx)  # [..., B, Q, G]
+        neg = (1 - cfg.alpha) * (p**cfg.gamma) * (-torch.log1p(-(p - 1e-8)))
+        pos = cfg.alpha * ((1 - p) ** cfg.gamma) * (-torch.log(p + 1e-8))
+        cost_class = pos - neg
+    else:
+        cost_class = -torch.gather(logits.softmax(-1), -1, idx)
     cost_bbox = (boxes[..., :, None, :] - tboxes[..., None, :, :]).abs().sum(-1)  # [..,B,Q,G]
     cost_giou = -generalized_box_iou_pairwise(box_cxcywh_to_xyxy(boxes),
                                               box_cxcywh_to_xyxy(tboxes))
@@ -101,6 +109,32 @@ def hungarian(costs: torch.Tensor, tgt_valid: torch.Tensor) -> torch.Tensor:
             r, col = linear_sum_assignment(c[si, bi][rows])
             out[si, bi, rows[r]] = col
     return torch.from_numpy(out).to(costs.device)
+
+
+def match_one_to_many(costs: torch.Tensor, tgt_valid: torch.Tensor, k: int) -> torch.Tensor:
+    """One-to-many matching (matcher.py:132-160): k rounds of the exact
+    assignment of costs [S, B, G, Q] (or [B, G, Q]) over each problem's
+    valid rows, by scipy on the host; after each round the queries matched
+    to valid rows cost 1e6 more, so each valid row collects k distinct
+    queries. Returns query indices [..., k, G] (round-major) int64 on the
+    costs' device, -1 on pad rows."""
+    squeeze = costs.dim() == 3
+    c = (costs[None] if squeeze else costs).detach().double().cpu().numpy()
+    v = tgt_valid.detach().cpu().numpy()
+    s, b, g, _ = c.shape
+    out = np.full((s, b, k, g), -1, np.int64)
+    for bi in range(b):
+        rows = np.flatnonzero(v[bi])
+        if rows.size == 0:
+            continue
+        for si in range(s):
+            cb = c[si, bi][rows]
+            for r in range(k):
+                rr, col = linear_sum_assignment(cb)
+                out[si, bi, r, rows[rr]] = col
+                cb[:, col] += 1e6
+    out = torch.from_numpy(out).to(costs.device)
+    return out[0] if squeeze else out
 
 
 def solve_matchings(costs: torch.Tensor, tgt_valid: torch.Tensor):

@@ -1,16 +1,19 @@
 """DFINETransformer decoder (port of ``dfine_tpu/models/decoder.py``): top-k
-query selection, decoder layers of self-attention + deformable
-cross-attention + gate + FFN, the FDR integral with distance2bbox, LQE, and
-the mask pixel decoder.
+query selection (``default``, ``one2many``, ``agnostic``), decoder layers of
+self-attention + deformable cross-attention + gate + FFN, the FDR integral
+with distance2bbox, LQE, and the mask pixel decoder.
 
 Eval mode runs ``eval_idx + 1`` layers and returns the last layer's
 outputs. Train mode (``self.training``) runs all ``num_layers`` layers and
 returns the sets the criterion supervises (decoder.py:390-729): the final
 layer, ``aux_outputs``, ``pre_outputs``, ``enc_aux_outputs`` and, when
 targets are given, the contrastive-denoising queries' ``dn_outputs``,
-``dn_pre_outputs`` and ``dn_meta``. The lazy per-set mask embeddings of the
-segment train step wait for the next slice: train mode raises with the
-mask head. Submodule names follow the reference (uc-vision) layout, which
+``dn_pre_outputs`` and ``dn_meta``. With the mask head, train mode emits the
+lazy mask head (decoder.py:659-673): each layer's set carries its queries'
+``mask_embed`` [B, Q, mask_dim] and the final set also the pixel decoder's
+``mask_feat`` [B, mask_dim, Hm, Wm]; the criterion takes the product of the
+matched embeddings alone, never [B, Q, Hm, Wm] logits per set. Submodule
+names follow the reference (uc-vision) layout, which
 ``dfine_tpu.utils.checkpoint.torch_key_to_flax`` translates.
 """
 
@@ -222,8 +225,8 @@ class DFINETransformer(nn.Module):
                  enable_mask_head=False, mask_dim=256, layer_scale=1, label_noise_ratio=0.5,
                  box_noise_scale=1.0):
         super().__init__()
-        if query_select_method != "default":
-            raise NotImplementedError("only the 'default' query selection is ported")
+        if query_select_method not in ("default", "one2many", "agnostic"):
+            raise ValueError(f"unknown query_select_method {query_select_method!r}")
         if layer_scale != 1:
             raise NotImplementedError("layer_scale != 1 is not ported")
         if num_levels != len(feat_channels):
@@ -234,6 +237,7 @@ class DFINETransformer(nn.Module):
         self.eval_idx = eval_idx if eval_idx >= 0 else num_layers + eval_idx
         self.reg_max, self.reg_scale, self.up = reg_max, float(reg_scale), float(up)
         self.enable_mask_head = enable_mask_head
+        self.query_select_method = query_select_method
         self.num_denoising = num_denoising
         self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
 
@@ -246,7 +250,9 @@ class DFINETransformer(nn.Module):
         if num_denoising > 0:
             self.denoising_class_embed = nn.Embedding(num_classes + 1, hd, padding_idx=num_classes)
         self.enc_output = nn.Sequential(OrderedDict(proj=nn.Linear(hd, hd), norm=LayerNorm(hd)))
-        self.enc_score_head = nn.Linear(hd, num_classes)
+        # agnostic: one objectness logit per anchor (decoder.py:444)
+        self.enc_score_head = nn.Linear(hd, 1 if query_select_method == "agnostic"
+                                        else num_classes)
         self.enc_bbox_head = MLP(hd, hd, 4, 3)
         self.query_pos_head = MLP(4, 2 * hd, hd, 2)
         self.pre_bbox_head = MLP(hd, hd, 4, 3)
@@ -286,6 +292,21 @@ class DFINETransformer(nn.Module):
                     torch.tensor(project, dtype=torch.float32, device=device))
         return self._const_cache[key]
 
+    def _select(self, enc_logits: torch.Tensor) -> torch.Tensor:
+        """The anchors that become queries [B, Q] (decoder.py:457-469):
+        ``default`` by the best class score, ``one2many`` top-k over all
+        (anchor, class) scores, an anchor possibly more than once,
+        ``agnostic`` by the one objectness score."""
+        b, s, c = enc_logits.shape
+        if self.query_select_method == "one2many":
+            flat = enc_logits.reshape(b, -1).topk(min(self.num_queries, s * c), dim=1).indices
+            return flat // self.num_classes
+        if self.query_select_method == "agnostic":
+            score = enc_logits[..., 0]
+        else:
+            score = enc_logits.max(-1).values
+        return score.topk(min(self.num_queries, s), dim=1).indices
+
     def _dn_mask(self, num_group, max_gt, device) -> torch.Tensor:
         key = ("dn", num_group, max_gt, str(device))
         if key not in self._const_cache:
@@ -318,9 +339,6 @@ class DFINETransformer(nn.Module):
         cxcywh, valid [B, G]) turn on the CDN queries, whose noise is
         ``dn_noise`` or drawn from ``generator``."""
         train = self.training
-        if train and self.enable_mask_head:
-            raise NotImplementedError("the segment train step (lazy per-set mask embeddings) "
-                                      "is not ported yet")
         b = feats[0].shape[0]
         hd = self.hidden_dim
         proj = [p(f) for p, f in zip(self.input_proj, feats)]
@@ -331,8 +349,7 @@ class DFINETransformer(nn.Module):
 
         out_mem = self.enc_output(memory)
         enc_logits = self.enc_score_head(out_mem)
-        num_q = min(self.num_queries, enc_logits.shape[1])
-        topk_ind = enc_logits.max(-1).values.topk(num_q, dim=1).indices  # [B, Q]
+        topk_ind = self._select(enc_logits)  # [B, Q]
 
         def gather_q(x):
             return torch.gather(x, 1, topk_ind[..., None].expand(-1, -1, x.shape[-1]))
@@ -359,7 +376,7 @@ class DFINETransformer(nn.Module):
         ref_points_detach = torch.sigmoid(ref_unact)
         ref_points_initial = pre_scores = pre_bboxes = None
         dtype = output.dtype
-        dec_logits, dec_boxes, dec_corners, dec_refs = [], [], [], []
+        dec_logits, dec_boxes, dec_corners, dec_refs, dec_hs = [], [], [], [], []
         for i in range(self.num_layers if train else self.eval_idx + 1):
             query_pos = self.query_pos_head(ref_points_detach.to(dtype)).clamp(-10, 10)
             output = self.decoder.layers[i](output, ref_points_detach, value, spatial_shapes,
@@ -379,36 +396,45 @@ class DFINETransformer(nn.Module):
                 dec_boxes.append(inter_ref_bbox)
                 dec_corners.append(pred_corners)
                 dec_refs.append(ref_points_initial)
+                dec_hs.append(output)
             pred_corners_undetach = pred_corners
             ref_points_detach = inter_ref_bbox.detach()
             output_detach = output.detach()
 
+        mask_feat = embeds = None
+        if self.enable_mask_head:
+            h0, w0 = spatial_shapes[0]
+            mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0)
+            mask_feat = self.pixel_decoder(inner_feats, mem0)  # [B, C, Hm, Wm]
+            embeds = [self.mask_head(h) for h in dec_hs]  # row-wise: DN and matching alike
         if not train:
             out = {"pred_logits": dec_logits[-1], "pred_boxes": dec_boxes[-1]}
             if self.enable_mask_head:
-                h0, w0 = spatial_shapes[0]
-                mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0)
-                mask_feat = self.pixel_decoder(inner_feats, mem0)
-                masks = torch.einsum("bqc,bchw->bqhw", self.mask_head(output), mask_feat)
+                masks = torch.einsum("bqc,bchw->bqhw", embeds[-1], mask_feat)
                 out["pred_masks"] = torch.sigmoid(masks)
             return out
 
         d = dn_meta.num_denoising if dn_meta is not None else 0
 
-        def sets(logits, boxes, corners, refs, part):
-            return [{"pred_logits": lg[:, part], "pred_boxes": bx[:, part],
+        def sets(part):
+            out_ = [{"pred_logits": lg[:, part], "pred_boxes": bx[:, part],
                      "pred_corners": cr[:, part], "ref_points": rf[:, part]}
-                    for lg, bx, cr, rf in zip(logits, boxes, corners, refs)]
+                    for lg, bx, cr, rf in zip(dec_logits, dec_boxes, dec_corners, dec_refs)]
+            for s_, e in zip(out_, embeds or ()):
+                s_["mask_embed"] = e[:, part]
+            return out_
 
-        main = sets(dec_logits, dec_boxes, dec_corners, dec_refs, slice(d, None))
+        main = sets(slice(d, None))
         out = dict(main[-1])
+        if mask_feat is not None:
+            out["mask_feat"] = mask_feat
         out["aux_outputs"] = main[:-1]
         out["enc_aux_outputs"] = [{"pred_logits": gather_q(enc_logits),
                                    "pred_boxes": torch.sigmoid(enc_bbox_unact)}]
         out["pre_outputs"] = {"pred_logits": pre_scores[:, d:], "pred_boxes": pre_bboxes[:, d:]}
-        out["enc_meta"] = {"class_agnostic": False}
+        out["enc_meta"] = {"class_agnostic": self.query_select_method == "agnostic"}
         if dn_meta is not None:
-            out["dn_outputs"] = sets(dec_logits, dec_boxes, dec_corners, dec_refs, slice(0, d))
+            out["dn_outputs"] = sets(slice(0, d))
             out["dn_pre_outputs"] = {"pred_logits": pre_scores[:, :d],
                                      "pred_boxes": pre_bboxes[:, :d]}
             out["dn_meta"] = {"dn_num_group": dn_meta.num_group,

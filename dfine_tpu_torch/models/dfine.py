@@ -4,7 +4,7 @@ and ``build_model``."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -24,9 +24,10 @@ class DFINE(nn.Module):
     normalized) and, with the mask head, ``pred_masks [B,Q,Hm,Wm]``
     (probabilities)."""
 
-    def __init__(self, size: str = "m", num_classes: int = 80, enable_mask_head: bool = False):
+    def __init__(self, size: str = "m", num_classes: int = 80, enable_mask_head: bool = False,
+                 cfg_overrides: Sequence[Tuple[str, Any]] = ()):
         super().__init__()
-        cfg = model_config(size)
+        cfg = model_config(size, cfg_overrides)
         bcfg, ecfg, dcfg = cfg["backbone"], cfg["encoder"], cfg["decoder"]
         self.size = size
         self.backbone = HGNetv2(bcfg["name"], bcfg["use_lab"], bcfg["return_idx"])
@@ -112,14 +113,17 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def build_model(size: str, num_classes: int, enable_mask_head: bool = False,
                 dtype: torch.dtype = torch.float32,
-                device: Optional[Union[str, torch.device]] = None) -> DFINE:
+                device: Optional[Union[str, torch.device]] = None,
+                cfg_overrides: Sequence[Tuple[str, Any]] = ()) -> DFINE:
     """An eval-mode DFINE of ``size`` with weights drawn from a generator
     seeded with 0, on ``device`` (default: the card; raises without CUDA).
     ``dtype`` casts the parameters, for serving; training keeps fp32
-    parameters and computes in bf16 under autocast (``train.train_step``)."""
+    parameters and computes in bf16 under autocast (``train.train_step``).
+    ``cfg_overrides``: (("section.key", value), ...) patched over the size's
+    configuration, e.g. (("decoder.query_select_method", "agnostic"),)."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = DFINE(size, num_classes, enable_mask_head)
+        model = DFINE(size, num_classes, enable_mask_head, cfg_overrides)
     model.to_empty(device="cpu")
     reset_parameters(model, torch.Generator().manual_seed(0))
     return set_compute_dtype(model, dtype).to(dev).eval()

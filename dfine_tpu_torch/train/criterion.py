@@ -1,14 +1,19 @@
-"""D-FINE detection criterion (port of ``dfine_tpu/train/criterion.py``).
+"""D-FINE det+seg criterion (port of ``dfine_tpu/train/criterion.py``).
 
-Targets are padded: labels [B, G], boxes [B, G, 4] cxcywh, valid [B, G].
-Every output set shares the [B, Q, .] shapes, so the losses run stacked
-over a set axis, in the order final, aux_0.., pre, enc_0.. (as the JAX
-package's vmapped pass does); the DN sets are stacked the same way. Each
-loss function below takes that leading set axis S and returns one value per
-set. Matching is ``matcher.solve_matchings`` (scipy on the host). Ported
-losses: ``vfl``, ``boxes`` and ``local`` (FGL + DDF), the default set;
-``focal`` and ``masks`` are not ported yet and raise. The normalizers are
-those of one process (``world = 1``).
+Targets are padded: labels [B, G], boxes [B, G, 4] cxcywh, valid [B, G],
+and for the ``masks`` loss masks [B, G, Hm', Wm'] with mask_valid [B, G]
+(``valid`` where absent). Every output set shares the [B, Q, .] shapes, so
+the losses run stacked over a set axis, in the order final, aux_0.., pre,
+enc_0.. (as the JAX package's vmapped pass does); the DN sets are stacked
+the same way. Each loss function below takes that leading set axis S and
+returns one value per set. Matching is ``matcher.solve_matchings`` (scipy
+on the host). Losses: ``vfl``, ``focal`` (with ``label_smoothing``),
+``boxes``, ``local`` (FGL + DDF) and ``masks`` (focal BCE + Dice of the
+matched queries' lazy mask logits, with the DN zip truncation of
+criterion.py:520-591). Class-agnostic encoder sets are padded to C classes
+with -20 columns and matched to class 0 (criterion.py:338-366). The
+normalizers are those of one process: the all-reduce of data parallelism
+is not ported.
 """
 
 from __future__ import annotations
@@ -23,9 +28,6 @@ from ..matcher import MatcherConfig, matching_cost, solve_matchings
 from ..models.denoising import dn_match_indices
 from ..ops.boxes import box_cxcywh_to_xyxy, box_iou_aligned, generalized_box_iou_aligned
 from ..ops.fdr import bbox2distance
-
-PORTED_LOSSES = ("vfl", "boxes", "local")
-
 
 def default_weight_dict() -> Dict[str, float]:
     """Loss weights (reference src/d_fine/configs.py:26-38)."""
@@ -43,6 +45,7 @@ class CriterionConfig:
     reg_max: int = 32
     reg_scale: float = 4.0
     up: float = 0.5
+    label_smoothing: float = 0.0
     matcher: MatcherConfig = field(default_factory=MatcherConfig)
     ddf_temperature: float = 5.0
 
@@ -87,6 +90,26 @@ def loss_vfl(logits, boxes, q_idx, pair_labels, pair_boxes, pair_valid, num_boxe
     weight = cfg.alpha * pred_score.pow(cfg.gamma) * (1.0 - onehot) + target_score
     bce = _bce_with_logits(logits, target_score) * weight
     return bce.sum((1, 2, 3)) / num_boxes
+
+
+def loss_focal(logits, q_idx, pair_labels, pair_valid, num_boxes, cfg: CriterionConfig):
+    """Sigmoid focal classification loss with label smoothing per set
+    (criterion.py:117-140), arguments as ``loss_vfl``'s. Returns [S]."""
+    logits = logits.float()
+    s, b, q, c = logits.shape
+    q_idx = (q_idx if q_idx.dim() == 3 else q_idx[None]).expand(s, b, -1)
+    safe_q = torch.where(pair_valid, q_idx, q)
+    lab = torch.where(pair_valid, pair_labels.expand(s, b, -1), cfg.num_classes)
+    cls_grid = torch.full((s, b, q + 1), cfg.num_classes, dtype=torch.long,
+                          device=logits.device).scatter(2, safe_q, lab.long())[..., :q]
+    target = F.one_hot(cls_grid, cfg.num_classes + 1)[..., :-1].float()
+    if cfg.label_smoothing > 0:
+        target = target * (1 - cfg.label_smoothing) + cfg.label_smoothing / c
+    p = torch.sigmoid(logits)
+    p_t = p * target + (1 - p) * (1 - target)
+    loss = _bce_with_logits(logits, target) * (1 - p_t) ** cfg.gamma
+    alpha_t = cfg.alpha * target + (1 - cfg.alpha) * (1 - target)
+    return (alpha_t * loss).sum((1, 2, 3)) / num_boxes
 
 
 def loss_boxes(boxes, q_idx, pair_boxes, pair_valid, num_boxes):
@@ -162,15 +185,49 @@ def loss_ddf(corners, teacher_cache, q_idx, pair_valid, pair_iou, num_pos, num_n
     return (loss_pos * num_pos + loss_neg * num_neg) / (num_pos + num_neg)
 
 
+def mask_logits(embed: torch.Tensor, q_idx: torch.Tensor, mask_feat: torch.Tensor):
+    """The lazy mask head's logits of the matched queries: embed [S, B, Q, C]
+    gathered at q_idx [S, B, K], times mask_feat [B, C, Hm, Wm], in fp32
+    after the product (criterion.py:267-269). Returns [S, B, K, Hm, Wm]."""
+    emb = gather_q(embed, q_idx)  # [S, B, K, C]
+    s, b, k, c = emb.shape
+    hm, wm = mask_feat.shape[-2:]
+    prod = torch.bmm(emb.transpose(0, 1).reshape(b, s * k, c),
+                     mask_feat.reshape(b, c, hm * wm).to(emb.dtype))
+    return prod.float().reshape(b, s, k, hm, wm).transpose(0, 1)
+
+
+def loss_masks(pred, gt, m):
+    """Adaptive-alpha focal BCE, a mean over each instance's pixels, and
+    Dice (criterion.py:288-305) per set: pred [S, B, K, Hm, Wm] logits,
+    gt [B, K, Hm, Wm] in [0, 1], m [B, K] the supervised pairs. Both are
+    divided by max(#m, 1). Returns ([S], [S])."""
+    mf = m.float()
+    n_inst = mf.sum().clamp_min(1.0)
+    alpha = 0.5 + 0.25 * (1.0 - 2.0 * gt.mean((2, 3), keepdim=True)).clamp(-1.0, 1.0)
+    p = torch.sigmoid(pred)
+    p_t = p * gt + (1 - p) * (1 - gt)
+    alpha_t = alpha * gt + (1 - alpha) * (1 - gt)
+    focal = alpha_t * (1 - p_t) ** 2.0 * _bce_with_logits(pred, gt)
+    loss_bce = (focal.mean((3, 4)) * mf).sum((1, 2)) / n_inst
+    pf, gf = p.flatten(3), gt.flatten(2)
+    dice = 1.0 - (2.0 * (pf * gf).sum(-1) + 1e-6) / (pf.sum(-1) + gf.sum(-1) + 1e-6)
+    return loss_bce, (dice * mf).sum((1, 2)) / n_inst
+
+
+def _gt_masks(targets, size):
+    """The GT masks at the mask head's size (nearest with half-pixel centres,
+    as ``jax.image.resize``'s "nearest"), clipped to [0, 1], and mask_valid."""
+    gt = targets["masks"].float()
+    if tuple(gt.shape[2:]) != tuple(size):
+        gt = F.interpolate(gt, size=tuple(size), mode="nearest-exact")
+    return gt.clamp(0.0, 1.0), targets.get("mask_valid", targets["valid"])
+
+
 def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
                       cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
     """Weighted losses of every supervised set and their ``total``, each
     ``nan_to_num``'ed (criterion.py:315-613, one process)."""
-    unported = set(cfg.losses) - set(PORTED_LOSSES)
-    if unported:
-        raise NotImplementedError(f"losses {sorted(unported)} are not ported yet")
-    if outputs.get("enc_meta", {}).get("class_agnostic", False):
-        raise NotImplementedError("class-agnostic encoder sets are not ported yet")
     labels, tboxes, valid = targets["labels"].long(), targets["boxes"].float(), targets["valid"]
     b = valid.shape[0]
     use, wd = set(cfg.losses), cfg.weight_dict
@@ -183,15 +240,23 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
 
     aux = list(outputs.get("aux_outputs", []))
     enc = list(outputs.get("enc_aux_outputs", []))
-    sets = [outputs] + aux + [outputs["pre_outputs"]] + enc
+    main = [outputs] + aux + [outputs["pre_outputs"]]
     n_aux = len(aux)
     suffixes = ([""] + [f"_aux_{i}" for i in range(n_aux)] + ["_pre"]
                 + [f"_enc_{i}" for i in range(len(enc))])
-    lg_s = torch.stack([s_["pred_logits"] for s_ in sets]).float()  # [S, B, Q, C]
-    bx_s = torch.stack([s_["pred_boxes"] for s_ in sets]).float()
+    c = outputs["pred_logits"].shape[-1]
+    enc_lg = [s_["pred_logits"] for s_ in enc]
+    enc_labels = labels
+    if outputs.get("enc_meta", {}).get("class_agnostic", False):
+        # one objectness column, padded to C with columns of sigmoid(-20) ~ 2e-9
+        enc_lg = [torch.cat([lg, lg.new_full((*lg.shape[:-1], c - lg.shape[-1]), -20.0)], -1)
+                  for lg in enc_lg]
+        enc_labels = torch.zeros_like(labels)
+    lg_s = torch.stack([s_["pred_logits"] for s_ in main] + enc_lg).float()  # [S, B, Q, C]
+    bx_s = torch.stack([s_["pred_boxes"] for s_ in main + enc]).float()
+    lb_s = torch.stack([labels] * len(main) + [enc_labels] * len(enc))  # [S, B, G]
     q = lg_s.shape[2]
-    costs = matching_cost(lg_s.detach(), bx_s.detach(), labels[None].expand(len(sets), -1, -1),
-                          tboxes, valid, cfg.matcher)
+    costs = matching_cost(lg_s.detach(), bx_s.detach(), lb_s, tboxes, valid, cfg.matcher)
     match, go_q, go_t, go_valid = solve_matchings(costs, valid)
 
     num_boxes = valid.sum().float().clamp_min(1.0)
@@ -203,15 +268,16 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
 
     go_boxes = torch.gather(tboxes, 1, go_t[..., None].expand(-1, -1, 4))
     if "vfl" in use:
-        put("loss_vfl", suffixes,
-            loss_vfl(lg_s, bx_s, match, labels[None], tboxes, valid, num_boxes, cfg))
+        put("loss_vfl", suffixes, loss_vfl(lg_s, bx_s, match, lb_s, tboxes, valid, num_boxes, cfg))
+    if "focal" in use:
+        put("loss_focal", suffixes, loss_focal(lg_s, match, lb_s, valid, num_boxes, cfg))
     if "boxes" in use:
         l1, giou = loss_boxes(bx_s, go_q, go_boxes, go_valid, num_boxes_go)
         put("loss_bbox", suffixes, l1)
         put("loss_giou", suffixes, giou)
     if "local" in use:  # corner sets: final (no ddf) and aux (ddf)
         n_loc = 1 + n_aux
-        cr_s = torch.stack([s_["pred_corners"] for s_ in sets[:n_loc]])
+        cr_s = torch.stack([s_["pred_corners"] for s_ in main[:n_loc]])
         iou_s = _pair_iou(bx_s[:n_loc], go_q[None], go_boxes)
         cache = fgl_targets(outputs["ref_points"], go_q, go_boxes, cfg)
         put("loss_fgl", suffixes[:n_loc],
@@ -220,13 +286,26 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
             teacher = ddf_teacher_cache(outputs["pred_corners"], outputs["pred_logits"], cfg)
             put("loss_ddf", suffixes[1:n_loc],
                 loss_ddf(cr_s[1:], teacher, go_q, go_valid, iou_s[1:], num_pos, num_neg, cfg))
+    mask_feat = outputs.get("mask_feat")
+    with_masks = "masks" in use and mask_feat is not None and "mask_embed" in outputs
+    if with_masks and "masks" in targets:  # final and aux sets, each on its own match
+        gt, mask_valid = _gt_masks(targets, mask_feat.shape[-2:])
+        n_m = 1 + n_aux
+        emb = torch.stack([s_["mask_embed"] for s_ in main[:n_m]])
+        bce, dice = loss_masks(mask_logits(emb, match[:n_m], mask_feat), gt, valid & mask_valid)
+        put("loss_mask_bce", suffixes[:n_m], bce)
+        put("loss_mask_dice", suffixes[:n_m], dice)
 
     if "dn_outputs" in outputs:  # fixed DN matching (criterion.py:493-609)
         dn_q, dn_t, dn_valid = dn_match_indices(valid, outputs["dn_meta"]["dn_num_group"])
         dn_num_boxes = num_boxes * outputs["dn_meta"]["dn_num_group"]
         dn_sets = outputs["dn_outputs"]
-        n_dn = len(dn_sets)
-        dn_all = dn_sets + [outputs["dn_pre_outputs"]]  # pre: vfl and boxes only
+        # with masks, the reference's zip truncation leaves the last DN layer
+        # out of the DN sets, its masks supervised alone as "_dn_final"
+        dn_masks = with_masks and "mask_embed" in dn_sets[0]
+        dn_iter = dn_sets[:-1] if dn_masks else dn_sets
+        n_dn = len(dn_iter)
+        dn_all = dn_iter + [outputs["dn_pre_outputs"]]  # pre: vfl and boxes only
         dn_suf = [f"_dn_{i}" for i in range(n_dn)] + ["_dn_pre"]
         dn_lg = torch.stack([d_["pred_logits"] for d_ in dn_all]).float()
         dn_bx = torch.stack([d_["pred_boxes"] for d_ in dn_all]).float()
@@ -239,8 +318,8 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
             l1, giou = loss_boxes(dn_bx, dn_q, dn_boxes, dn_valid, dn_num_boxes)
             put("loss_bbox", dn_suf, l1)
             put("loss_giou", dn_suf, giou)
-        if "local" in use:
-            cr_dn = torch.stack([d_["pred_corners"] for d_ in dn_sets])
+        if "local" in use and n_dn:
+            cr_dn = torch.stack([d_["pred_corners"] for d_ in dn_iter])
             iou_dn = _pair_iou(dn_bx[:n_dn], dn_q[None], dn_boxes)
             cache = fgl_targets(dn_sets[0]["ref_points"], dn_q, dn_boxes, cfg)
             put("loss_fgl", dn_suf, loss_fgl(cr_dn, dn_q, dn_valid, iou_dn, dn_num_boxes, cfg,
@@ -249,6 +328,15 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
                                         cfg)
             put("loss_ddf", dn_suf,
                 loss_ddf(cr_dn, teacher, dn_q, dn_valid, iou_dn, num_pos, num_neg, cfg))
+        if dn_masks and "masks" in targets:  # every DN layer, the last as "_dn_final"
+            dn_gt = gt.gather(1, dn_t[..., None, None].expand(-1, -1, *gt.shape[2:]))
+            emb = torch.stack([d_["mask_embed"] for d_ in dn_sets])
+            bce, dice = loss_masks(mask_logits(emb, dn_q[None].expand(len(dn_sets), -1, -1),
+                                               mask_feat),
+                                   dn_gt, dn_valid & torch.gather(mask_valid, 1, dn_t))
+            dn_mask_suf = dn_suf[:n_dn] + ["_dn_final"]
+            put("loss_mask_bce", dn_mask_suf, bce)
+            put("loss_mask_dice", dn_mask_suf, dice)
 
     losses = {k: torch.nan_to_num(v, nan=0.0) for k, v in losses.items()}
     losses["total"] = sum(losses.values())

@@ -12,6 +12,9 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_port_helpers import jax_cdn_noise, jax_template_shapes
+from test_torch_port_helpers import map_tree as _tree
+from test_torch_port_helpers import random_outputs as _random_outputs
+from test_torch_port_helpers import random_targets as _targets
 from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
 
 
@@ -167,13 +170,6 @@ def test_iou_and_bin_targets_match_jax():
 # ------------------------------------------------------------------ (c) CDN --
 
 
-def _targets(seed, b=2, g=4, c=5, valid=((1, 1, 1, 0), (1, 0, 0, 0))):
-    rng = np.random.default_rng(seed)
-    return {"labels": rng.integers(0, c, (b, g)).astype(np.int32),
-            "boxes": rng.uniform(0.2, 0.6, (b, g, 4)).astype(np.float32),
-            "valid": np.asarray(valid, bool)}
-
-
 @pytest.mark.parametrize("num_denoising,g", [(100, 4), (100, 7), (5, 8)])
 def test_cdn_queries_match_jax(num_denoising, g):
     """Same key, same draws: class ids exact, reference logits atol 1e-5;
@@ -272,41 +268,6 @@ def test_hungarian_optimum_equals_jax():
 
 
 # ------------------------------------------------------------ (e) criterion --
-
-
-def _random_outputs(seed, b=2, q=24, c=5, g=4, n_aux=2, n_group=2, reg_max=32):
-    """A train-mode output tree of numpy arrays: final, aux, pre, enc and the
-    DN sets, with distinct random scores so the assignments are unique."""
-    rng = np.random.default_rng(seed)
-    d = 2 * n_group * g
-
-    def one(n, corners=True):
-        s = {"pred_logits": rng.normal(0, 2, (b, n, c)).astype(np.float32),
-             "pred_boxes": rng.uniform(0.15, 0.75, (b, n, 4)).astype(np.float32)}
-        if corners:
-            s["pred_corners"] = rng.normal(0, 1, (b, n, 4 * (reg_max + 1))).astype(np.float32)
-            s["ref_points"] = ref_q if n == q else ref_d
-        return s
-
-    ref_q = rng.uniform(0.2, 0.7, (b, q, 4)).astype(np.float32)
-    ref_d = rng.uniform(0.2, 0.7, (b, d, 4)).astype(np.float32)
-    out = one(q)
-    out["aux_outputs"] = [one(q) for _ in range(n_aux)]
-    out["pre_outputs"] = one(q, corners=False)
-    out["enc_aux_outputs"] = [one(q, corners=False)]
-    out["enc_meta"] = {"class_agnostic": False}
-    out["dn_outputs"] = [one(d) for _ in range(n_aux + 1)]
-    out["dn_pre_outputs"] = one(d, corners=False)
-    out["dn_meta"] = {"dn_num_group": n_group, "dn_num_split": (d, q), "max_gt": g}
-    return out
-
-
-def _tree(x, fn):
-    if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    if isinstance(x, list):
-        return [_tree(v, fn) for v in x]
-    return fn(x) if isinstance(x, np.ndarray) else x
 
 
 @pytest.mark.parametrize("seed", [0, 1])
