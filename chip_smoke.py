@@ -14,7 +14,8 @@ Phases, each printed as one JSON line:
    shapes of D-FINE-m at 640 px (TF32 off), with its time, the plain
    version's, one PyTorch call's where one computes the same function, and
    the least time the card could take (bound); the deformable-attention
-   kernel also beside the time of a launch of it with no work. The three
+   kernel also beside the time of a launch of it with no work, and on the
+   non-square levels of every rect bucket. The three
    row scatter-adds
    (the value gradient of the deformable attention: ``rows_scatter_add``,
    ``_mxu`` and ``_tiled``) run at the train step's shapes and at head dim
@@ -47,6 +48,34 @@ Phases, each printed as one JSON line:
     mask, per-group learning-rate peaks, ``b_accum_steps = 2``), batch 4,
     bf16: frozen parameters, micro-steps, EMA and learning rates checked
     over 4 micro-steps, then 8 timed and a profile.
+
+The serving surface (m det+seg, 640 px, bf16 unless said, ``build_model``'s
+seeded weights loaded from a reference-style ``.pth``; 720p BGR frames plus
+one 1080x1920 and one 1200x1600; the fp32 comparisons of 14-15 on weights
+re-drawn from seed 1):
+
+13. serving_modes: ``TorchModel`` in letterbox, rect (buckets made at
+    load) and NMS mode, each frame's threshold keeping 15-40 detections: call p50/p90, kept a frame, 4 deform launches a
+    frame, boxes inside the frame and masks of the frame's size; letterbox
+    and rect boxes against plain's on a square frame (1 px); the
+    deformable-attention kernel against its plain version on the inputs that
+    serving the 1080x1920 and 1200x1600 frames in rect mode gives it;
+    ``mask2poly`` (no cv2) on served masks;
+14. deploy: ``convert_to_deploy`` fused against unfused at fp32 on the card
+    (phase_model's rule), and bf16 serving of both with device busy ms and
+    activities a frame;
+15. int8: ``w8a8`` and ``w8a16`` at fp32, card against the same converted
+    model on the CPU (logits and masks within twice the CPU model's own
+    reaction to a 1e-6 input perturbation; the card in the other mode must
+    read at least 3 times those limits), bf16 serving of each,
+    ``count_int8``;
+16. aot_graph: ``AOTModel`` plain and rect (a CUDA graph per bucket, one
+    pool): replay against the same model run eagerly (fp32), bf16 call
+    p50/p90, the deform launches a frame from the profiler's kernel names,
+    device busy and idle share, pool bytes;
+17. export: ``export_model`` (.pt2, npz, graph manifest) and a dynamic-batch
+    .pt2; a fresh process imports ``dfine_tpu_torch``, loads and serves
+    them; the program's outputs against the eager fused model.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, if every phase passed, the last line
@@ -150,6 +179,20 @@ GRAD_REL_TOL = 2e-4  # test_pallas_scatter.py:69-78
 TILE_ROWS = 128  # destination rows a CTA of csrc/rows_scatter_add_tile.cu (kTile)
 BOX_ATOL, MIN_MATCHED = 1e-3, 0.98
 MODEL_ATOL = 1e-4  # logits and masks of matched queries, fp32 card vs CPU
+# the serving surface: timed calls a mode; fused vs unfused fp32 logits and
+# masks (test_serving.py:44-46's logit tolerance); a graph replay against
+# the same model run eagerly (the same kernels on the same inputs: expected
+# bit-equal); the exported bf16 program against the eager fused model
+MODE_FRAMES = 12
+DEPLOY_ATOL = 2e-3
+# int8 card vs CPU: each side's fp32 activations differ by about this share
+# (phase_model: logits within 1e-4), so the int8 model is held to its own
+# reaction to an input perturbed by it
+NOISE_REL = 1e-6
+# ... and these limits must fail the card run in the other int8 mode by this factor
+WRONG_MODE_MARGIN = 3.0
+GRAPH_ATOL = 1e-5
+EXPORT_SCORE_ATOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -425,6 +468,19 @@ def _empty_deform_launch():
     return call
 
 
+def _levels(canvas_hw):
+    """The sampling levels of a canvas, at M_SHAPES's strides (8, 16, 32:
+    1080x1920 -> a 384x640 canvas -> 48x80, 24x40, 12x20)."""
+    return tuple((canvas_hw[0] // s, canvas_hw[1] // s) for s in (IMG // h for h, _ in M_SHAPES))
+
+
+def _rect_levels():
+    """The sampling levels of each rect bucket at IMG."""
+    from dfine_tpu_torch.infer.base import default_rect_buckets
+
+    return [_levels(hw) for hw in default_rect_buckets((IMG, IMG))]
+
+
 def phase_deform_fwd(res):
     import torch
 
@@ -441,6 +497,17 @@ def phase_deform_fwd(res):
             max_err = max(max_err, err)
             if not err <= FWD_TOL:
                 raise AssertionError(f"deform fwd d={d} {dtype}: max err {err} > {FWD_TOL}")
+    # rect serving's non-square levels: those of every canonical bucket (B = 1)
+    for shapes in _rect_levels():
+        for dtype in (torch.float32, torch.bfloat16):
+            v, l, a = _deform_inputs(dev, 1, HEAD_DIM, shapes, M_POINTS, dtype, seed=5)
+            err = (ms_deform_attn_fwd(v, shapes, l, a, M_POINTS)
+                   - ms_deform_attn_fwd_plain(v, shapes, l, a, M_POINTS)).abs().max().item()
+            checks.append({"rect_levels": shapes, "value": str(dtype).split(".")[1],
+                           "max_abs_err": err})
+            max_err = max(max_err, err)
+            if not err <= FWD_TOL:
+                raise AssertionError(f"deform fwd at levels {shapes} {dtype}: max err {err}")
     v, l, a = _deform_inputs(dev, 1, HEAD_DIM, M_SHAPES, M_POINTS, torch.bfloat16, seed=3)
     far = torch.tensor([-0.6, 1.7, -1e9, 1e9], device=dev)
     l_far = far[torch.randint(0, 4, l.shape, device=dev)]
@@ -482,19 +549,20 @@ def _kernels_of(fn) -> list:
     """The device activities of one call of ``fn`` (torch.profiler), by name.
     A profiler window in which CUPTI recorded no device activity at all (it
     can drop a whole window when windows follow each other closely) is taken
-    again, up to three windows, as ``tests/test_torch_port_cuda.py`` does."""
+    again, after a pause, up to six windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = sorted(e.key for e in _device_rows(prof) for _ in range(e.count))
         if names:
             break
+        time.sleep(0.1)
     return names
 
 
@@ -1626,6 +1694,489 @@ def phase_train_l_frozen(res):
         raise AssertionError("train_l_frozen: " + "; ".join(failures))
 
 
+# ------------------------------------------------------- serving surface --
+
+
+def _serve_frames():
+    """720p BGR frames from default_rng, then one 1080x1920 and one
+    1200x1600 frame (rect mode's 16:9 and 4:3 buckets)."""
+    rng = np.random.default_rng(11)
+    return _frames(4) + [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+                         for hw in ((1080, 1920), (1200, 1600))]
+
+
+def _serving_weights(res) -> str:
+    """The serving phases' weights: ``build_model``'s seeded m det+seg
+    weights, written as a reference .pth (every serving phase loads it), with
+    the mask head's last layer scaled by 30 so that the mask logits leave 0
+    and the served masks are not empty at the detections' threshold. Beside
+    it, for the fp32 comparisons (deploy, int8), a model whose every weight
+    is re-drawn from seed 1, so that no layer is trivial."""
+    import tempfile
+
+    import torch
+
+    from dfine_tpu_torch.models.dfine import build_model
+
+    if "serving_pth" not in res:
+        res["tmp"] = tempfile.TemporaryDirectory()
+        model = build_model(SIZE, NUM_CLASSES, True, device="cpu")
+        with torch.no_grad():
+            model.decoder.mask_head.layers[-1].weight.mul_(30.0)
+        res["serving_pth"] = os.path.join(res["tmp"].name, "m_detseg.pth")
+        torch.save({"model": model.state_dict()}, res["serving_pth"])
+        parity = build_model(SIZE, NUM_CLASSES, True, device="cpu")
+        randomize_(parity, seed=1)
+        res["parity_model"] = parity
+    return res["serving_pth"]
+
+
+def _check_served(out, frame):
+    oh, ow = frame.shape[:2]
+    b = out["boxes"]
+    if not (np.isfinite(b).all() and (b >= 0).all() and (b[:, [0, 2]] <= ow).all()
+            and (b[:, [1, 3]] <= oh).all()):
+        raise AssertionError("served boxes not finite or outside the frame")
+    if out["masks"].shape != (len(out["scores"]), oh, ow):
+        raise AssertionError(f"served masks shape {out['masks'].shape} for a {oh}x{ow} frame")
+
+
+def _keep_threshold(model, frame) -> float:
+    """The threshold that keeps 15-40 of ``frame``'s detections, in the
+    widest gap between neighbouring scores there: bf16 scores tie in blocks,
+    and a threshold on a tied score keeps the whole block, or not, as the
+    last bit of a call moves."""
+    model.conf_thresh = 0.0
+    s = np.sort(model(frame)[0]["all_scores"])[::-1]
+    k = 15 + int(np.argmax(s[14:39] - s[15:40]))
+    return float((s[k - 1] + s[k]) / 2)
+
+
+def _serve_timed(model, frames, n):
+    """``n`` timed calls after a warm-up of every frame, each frame with its
+    ``_keep_threshold`` (so that every backend postprocesses about the same
+    number of masks); the deform launches counted around the timed calls."""
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    thresholds = [_keep_threshold(model, f) for f in frames]
+    reset_launch_counts()
+    times, kept = [], []
+    for i in range(n):
+        frame = frames[i % len(frames)]
+        model.conf_thresh = thresholds[i % len(frames)]
+        t = time.perf_counter()
+        (out,) = model(frame)
+        times.append(time.perf_counter() - t)
+        kept.append(len(out["scores"]))
+        _check_served(out, frame)
+    launches = launch_counts()["ms_deform_attn_fwd"]
+    p50, p90 = percentiles(times)
+    return {"call_p50_ms": p50, "call_p90_ms": p90, "kept_per_frame": float(np.mean(kept)),
+            "deform_launches": launches, "deform_launches_per_frame": launches / n}
+
+
+def _served_deform_checks(model, frames):
+    """The sampling kernel against its plain version on the inputs one
+    served call of each frame gives it (rect mode: non-square levels), every
+    launch of the call; these launches are made outside any counted run."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+
+    op, calls = tda.ms_deform_attn_op, []
+
+    def record(value, flat, loc, att, pts):
+        calls.append((value, tuple(zip(flat[::2], flat[1::2])), loc, att, tuple(pts)))
+        return op(value, flat, loc, att, pts)
+
+    tda.ms_deform_attn_op = record
+    try:
+        for f in frames:
+            model(f)
+    finally:
+        tda.ms_deform_attn_op = op
+    checks = []
+    for value, shapes, loc, att, pts in calls:
+        err = (ms_deform_attn_fwd(value, shapes, loc, att, pts)
+               - ms_deform_attn_fwd_plain(value, shapes, loc, att, pts)).abs().max().item()
+        checks.append({"levels": shapes, "value": str(value.dtype).split(".")[1],
+                       "max_abs_err": err})
+    return checks
+
+
+def phase_serving_modes(res):
+    """TorchModel in letterbox, rect (buckets made at load) and NMS mode."""
+    from dfine_tpu_torch import TorchModel
+    from dfine_tpu_torch.ops.preprocess import rect_bucket
+
+    pth, frames = _serving_weights(res), _serve_frames()
+    kw = dict(conf_thresh=0.5, half=True, enable_mask_head=True, device=DEV)
+    out, failures = {}, []
+    for mode, opts in (("letterbox", {"keep_ratio": True}), ("rect", {"rect": True}),
+                       ("nms", {"use_nms": True})):
+        t0 = time.perf_counter()
+        model = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, **kw, **opts)
+        out[mode] = {"load_seconds": time.perf_counter() - t0,
+                     **_serve_timed(model, frames, MODE_FRAMES)}
+        if out[mode]["deform_launches"] != DECODER_LAYERS * MODE_FRAMES:
+            failures.append(f"{mode}: {out[mode]['deform_launches']} deform launches")
+        res[f"mode_{mode}"] = model
+    # a frame whose aspect is the canvas's: letterbox and rect see plain's input,
+    # so their top-300 boxes (before any threshold) are plain's
+    square = np.random.default_rng(12).integers(0, 256, (960, 960, 3), dtype=np.uint8)
+    model = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, **kw)
+    ref = model(square)[0]["all_boxes"]
+    for mode in ("letterbox", "rect"):
+        model.keep_ratio, model.rect = mode == "letterbox", mode == "rect"
+        ours = model(square)[0]["all_boxes"]
+        match = align_by_box(ref / 960.0, ours / 960.0)
+        gap = float(np.abs(ours[match] - ref).max())
+        out[mode]["square_frame_box_gap_px"] = gap
+        if gap > 1.0:
+            failures.append(f"{mode} boxes vs plain on a square frame: {gap} px")
+    # the kernel against its plain version at the levels rect serving gave it
+    # for the 1080x1920 and 1200x1600 frames
+    checks = _served_deform_checks(res["mode_rect"], frames[-2:])
+    out["rect"]["kernel_vs_plain"] = checks
+    want = [_levels(rect_bucket(*f.shape[:2], (IMG, IMG))) for f in frames[-2:]]
+    if sorted({c["levels"] for c in checks}) != sorted(want) or len(checks) != 2 * DECODER_LAYERS:
+        failures.append(f"rect: deform levels {[c['levels'] for c in checks]}, want {want}")
+    bad = [c for c in checks if not c["max_abs_err"] <= FWD_TOL]
+    if bad:
+        failures.append(f"rect: deform kernel vs plain beyond {FWD_TOL}: {bad}")
+    # mask2poly (no cv2) on the first served masks that are not empty
+    masks = [m for f in frames for m in res["mode_rect"](f)[0]["masks"] if m.any()][:5]
+    t = time.perf_counter()
+    polys = [TorchModel.mask2poly(m) for m in masks]
+    poly_s = time.perf_counter() - t
+    flat = [p for ps in polys for p in ps]
+    if (masks and not flat) or any(len(p) < 3 or (p < 0).any() for p in flat):
+        failures.append(f"mask2poly: {len(flat)} polygons from {len(masks)} masks")
+    emit({"phase": "serving_modes", "model": f"{SIZE} det+seg bf16 {IMG}px, seed-1 .pth",
+          "frames": f"{MODE_FRAMES} calls over 4 x 720p, 1080x1920, 1200x1600", **out,
+          "mask2poly": {"masks": len(polys), "polygons": len(flat), "seconds": poly_s,
+                        "points": [len(p) for p in flat][:10]}})
+    res["serving_modes_counts"] = {m: out[m]["deform_launches"] for m in out}
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _card_vs_cpu(cpu, gpu, x, atol, tag, min_matched=MIN_MATCHED):
+    """phase_model's rule on one input: queries matched 1:1 by box within
+    BOX_ATOL (>= ``min_matched`` of them), logits and masks of the matched
+    ones within ``atol`` (one number, or one for each of "pred_logits" and
+    "pred_masks")."""
+    atol = atol if isinstance(atol, dict) else {"pred_logits": atol, "pred_masks": atol}
+    ours = _outputs(gpu, x)
+    matched, errs = _matched_errors(_outputs(cpu, x), ours)
+    finite = all(np.isfinite(v).all() for v in ours.values())
+    if matched < min_matched or any(errs[k] > atol[k] for k in errs) or not finite:
+        raise AssertionError(f"{tag}: matched {matched:.3f} (want {min_matched:.3f}), "
+                             f"errors {errs} (atol {atol}), finite {finite}")
+    return {"matched_frac": matched, "min_matched": min_matched,
+            "logit_max_abs_err": errs["pred_logits"], "mask_max_abs_err": errs["pred_masks"],
+            "atol": atol}
+
+
+def _outputs(model, x):
+    """One eval forward of ``model`` on ``x`` (moved to its device), as numpy."""
+    import torch
+
+    with torch.no_grad():
+        return {k: v.float().cpu().numpy()
+                for k, v in model(x.to(next(model.parameters()).device)).items()}
+
+
+def _matched_errors(ref, ours):
+    """The share of queries matched 1:1 by box within BOX_ATOL, and the
+    largest logit and mask difference among them (inf if none matched)."""
+    match = align_by_box(ref["pred_boxes"][0], ours["pred_boxes"][0])
+    keep = np.abs(ours["pred_boxes"][0][match] - ref["pred_boxes"][0]).max(-1) <= BOX_ATOL
+    errs = {k: float(np.abs(ours[k][0][match[keep]] - ref[k][0][keep]).max()) if keep.any()
+            else float("inf") for k in ("pred_logits", "pred_masks")}
+    return float(keep.mean()), errs
+
+
+def _served_profile(model, frame):
+    """One frame's call under the profiler (postprocess included: its cost
+    follows the number kept), then the serving program alone (forward, top-k
+    decode, mask cut; for AOTModel the graph replay) on that frame's input:
+    its wall p50/p90 around a synchronize and its profile."""
+    import torch
+
+    model.conf_thresh = _keep_threshold(model, frame)
+    prof = profile_window(lambda: model(frame), 5)
+    with torch.inference_mode():
+        x = model._prepare_inputs(frame)[0]
+
+    def predict():
+        with torch.inference_mode():
+            model._predict(x)
+        sync()
+
+    for _ in range(3):
+        predict()
+    times = []
+    for _ in range(MODE_FRAMES):
+        t = time.perf_counter()
+        predict()
+        times.append(time.perf_counter() - t)
+    p50, p90 = percentiles(times)
+    pred = profile_window(predict, 5)
+    return {"call_device_busy_ms": prof["device_busy_ms"],
+            "call_device_activities": prof["device_activities_per_call"],
+            "predict_p50_ms": p50, "predict_p90_ms": p90,
+            "predict_device_busy_ms": pred["device_busy_ms"],
+            "predict_device_activities": pred["device_activities_per_call"],
+            "predict_idle_share_at_p50": 1.0 - pred["device_busy_ms"] / p50}
+
+
+def phase_deploy(res):
+    """convert_to_deploy: fp32 fused against unfused on the card; bf16
+    serving of both, with device busy ms and activities a frame."""
+    import torch
+
+    from dfine_tpu_torch import TorchModel
+    from dfine_tpu_torch.infer.fuse import convert_to_deploy
+
+    pth, frames = _serving_weights(res), _serve_frames()[:4]
+    cpu = res["parity_model"]
+    unfused = copy.deepcopy(cpu).to(DEV)
+    fused = convert_to_deploy(copy.deepcopy(cpu)).to(DEV)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(1, 3, IMG, IMG)).astype(np.float32))
+    parity = _card_vs_cpu(unfused, fused, x.to(DEV), DEPLOY_ATOL, "deploy fp32 fused vs unfused")
+    del unfused, fused
+    out = {}
+    for tag, deploy in (("unfused", False), ("fused", True)):
+        model = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
+                           enable_mask_head=True, device=DEV, deploy=deploy)
+        out[tag] = {**_serve_timed(model, frames, MODE_FRAMES), **_served_profile(model, frames[0])}
+        del model
+    emit({"phase": "deploy", "parity_fp32": parity, "bf16_serving": out})
+    res["deploy_counts"] = out["fused"]["deform_launches"]
+    if out["fused"]["deform_launches"] != DECODER_LAYERS * MODE_FRAMES:
+        raise AssertionError(f"deploy: {out['fused']['deform_launches']} deform launches")
+
+
+def _moved_by_noise(cpu, x):
+    """The CPU model's own reaction to its input perturbed by NOISE_REL (the
+    size of the card's fp32 differences from the CPU): the share of
+    queries whose box stays within BOX_ATOL, and the largest logit and mask
+    change among them. An int8 (w8a8) or bf16-rounded (w8a16) model jumps
+    where an activation crosses a rounding edge, so this bounds what two
+    devices' fp32 differences may do to it."""
+    import torch
+
+    noise = torch.from_numpy(np.random.default_rng(9).standard_normal(x.shape).astype(np.float32))
+    return _matched_errors(_outputs(cpu, x), _outputs(cpu, x * (1 + NOISE_REL * noise)))
+
+
+def phase_int8(res):
+    """w8a8 and w8a16 at fp32 compute, card against the same converted
+    model on the CPU; bf16 serving of each; count_int8."""
+    import torch
+
+    from dfine_tpu_torch import Int8Model
+    from dfine_tpu_torch.infer.int8 import convert_int8, count_int8, set_int8_mode
+    from dfine_tpu_torch.models.layers import MultiHeadSelfAttention
+
+    pth, frames = _serving_weights(res), _serve_frames()[:4]
+    base = res["parity_model"]
+    want = sum(isinstance(m, (torch.nn.Linear, MultiHeadSelfAttention)) for m in base.modules())
+    cpu = convert_int8(copy.deepcopy(base))
+    gpu = copy.deepcopy(cpu).to(DEV)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(1, 3, IMG, IMG)).astype(np.float32))
+    out, failures = {"quantized_layers": count_int8(cpu), "conversion_layers": want}, []
+    if count_int8(cpu)[0] != want:
+        failures.append(f"count_int8 {count_int8(cpu)} vs {want} layers converted")
+    try:
+        for mode, other in (("w8a8", "w8a16"), ("w8a16", "w8a8")):
+            set_int8_mode(mode)
+            own_matched, moved = _moved_by_noise(cpu, x)
+            parity = {"cpu_under_noise": {"noise_rel": NOISE_REL, "matched_frac": own_matched,
+                                          "max_abs_change": moved}}
+            limits = {k: max(MODEL_ATOL, 2 * v) for k, v in moved.items()}
+            min_matched = min(MIN_MATCHED, own_matched - 0.03)
+            try:
+                parity.update(_card_vs_cpu(cpu, gpu, x, limits, f"int8 {mode} card vs cpu",
+                                           min_matched))
+            except AssertionError as e:
+                failures.append(str(e))
+            # the limits must fail the card in the other mode, by WRONG_MODE_MARGIN
+            ref = _outputs(cpu, x)
+            set_int8_mode(other)
+            matched, errs = _matched_errors(ref, _outputs(gpu, x))
+            set_int8_mode(mode)
+            over = {"unmatched": (1 - matched) / (1 - min_matched),
+                    **{k: errs[k] / limits[k] for k in limits}}
+            parity["card_in_" + other] = {"matched_frac": matched, "max_abs_err": errs,
+                                          "over_limit": over}
+            if max(over.values()) < WRONG_MODE_MARGIN:
+                failures.append(f"int8 {mode}: the card in {other} reads {over} of the limits")
+            model = Int8Model(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
+                              enable_mask_head=True, device=DEV)
+            if count_int8(model.model)[0] != want:
+                failures.append(f"{mode}: Int8Model has {count_int8(model.model)} int8 layers")
+            out[mode] = {"parity_fp32": parity, "bf16_serving": {
+                **_serve_timed(model, frames, MODE_FRAMES), **_served_profile(model, frames[0])}}
+            if out[mode]["bf16_serving"]["deform_launches"] != DECODER_LAYERS * MODE_FRAMES:
+                failures.append(f"{mode}: deform launches {out[mode]['bf16_serving']}")
+            del model
+    finally:
+        set_int8_mode("w8a16")
+    emit({"phase": "int8", **out})
+    res["int8_counts"] = {m: out[m]["bf16_serving"]["deform_launches"]
+                          for m in ("w8a8", "w8a16") if m in out}
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _deform_in_profile(fn) -> int:
+    return sum("ms_deform_attn_fwd_kernel" in n for n in _kernels_of(fn))
+
+
+def phase_aot_graph(res):
+    """AOTModel (one CUDA graph per bucket, one shared pool), plain and
+    rect: the graph's outputs against the same model run eagerly on the
+    same inputs, fp32; bf16 serving times, the deform launches a frame as
+    the profiler names them, device busy and idle share, pool bytes."""
+    import torch
+
+    from dfine_tpu_torch import AOTModel
+    from dfine_tpu_torch.infer.aot_model import pool_bytes
+    from dfine_tpu_torch.infer.torch_model import decode
+
+    from dfine_tpu_torch import TorchModel
+
+    pth, frames = _serving_weights(res), _serve_frames()
+    out, failures = {}, []
+    eager = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
+                       enable_mask_head=True, device=DEV)
+    out["eager"] = {**_serve_timed(eager, frames, MODE_FRAMES),
+                    **_served_profile(eager, frames[0])}
+    del eager
+    for tag, half, rect in (("plain_fp32", False, False), ("rect_fp32", False, True),
+                            ("plain", True, False), ("rect", True, True)):
+        t0 = time.perf_counter()
+        model = AOTModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=half,
+                         enable_mask_head=True, device=DEV, rect=rect)
+        r = {"load_seconds": time.perf_counter() - t0, "programs": len(model._programs),
+             "pool_bytes": pool_bytes(model.pool),
+             "deform_launches_held": [p.deform_launches for p in model._programs.values()]}
+        if not half:  # replay against eager, on each frame's own input
+            worst = {}
+            for f in frames[-3:]:
+                with torch.inference_mode():
+                    x = model._prepare_inputs(f)[0]
+                    g, e = model._predict(x), decode(model.model, x, model.num_top_queries)
+                for k in g:
+                    worst[k] = max(worst.get(k, 0.0), float((g[k].float() - e[k].float()).abs().max()))
+            r["replay_vs_eager_max_abs"] = worst
+            if max(worst.values()) > GRAPH_ATOL:
+                failures.append(f"{tag}: graph vs eager {worst} > {GRAPH_ATOL}")
+        else:
+            r.update(_serve_timed(model, frames, MODE_FRAMES))
+            r.update(_served_profile(model, frames[0]))
+            per_frame = _deform_in_profile(lambda: model(frames[0]))
+            r.update({"deform_launches_per_frame_profiled": per_frame,
+                      "call_idle_share_at_p50": 1.0 - r["call_device_busy_ms"] / r["call_p50_ms"]})
+            if per_frame != DECODER_LAYERS:
+                failures.append(f"{tag}: profiler saw {per_frame} deform launches a frame")
+        out[tag] = r
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "aot_graph", "graph_atol": GRAPH_ATOL, **out})
+    res["aot_counts"] = {t: out[t]["deform_launches_per_frame_profiled"] for t in ("plain", "rect")}
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+_EXPORTED_RUN = r"""
+import json, sys, time
+import numpy as np
+import torch
+import dfine_tpu_torch
+from dfine_tpu_torch import ExportedModel
+from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+art, dyn_art, inp, frames_path, img, conf = sys.argv[1:7]
+t0 = time.perf_counter()
+served = ExportedModel("m", None, 80, int(img), int(img), conf_thresh=float(conf), half=True,
+                       enable_mask_head=True, artifact_path=art)
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(inp)).cuda()
+with torch.inference_mode():
+    dec = served._predict(x)
+np.savez(inp + ".out.npz", **{k: v.float().cpu().numpy() for k, v in dec.items() if k != "masks"})
+frames = list(np.load(frames_path)["frames"])
+reset_launch_counts()
+kept = [len(served(f)[0]["scores"]) for f in frames]
+launches = launch_counts()["ms_deform_attn_fwd"]
+dyn = torch.export.load(dyn_art).module()
+shapes = {}
+with torch.inference_mode():
+    for b in (1, 3):
+        shapes[b] = list(dyn(x.expand(b, -1, -1, -1).contiguous())["boxes"].shape)
+print(json.dumps({"load_seconds": load_s, "kept": kept, "deform_launches": launches,
+                  "dynamic_batch_boxes": shapes}))
+"""
+
+
+def phase_export(res):
+    """export_model (.pt2 of the deploy-fused bf16 serving program, npz,
+    the graph manifest) and a dynamic-batch .pt2; a fresh process imports
+    dfine_tpu_torch, loads them and serves; its program outputs held
+    against the eager fused model on the same input."""
+    import torch
+
+    from dfine_tpu_torch.export import ServingProgram, export_model
+    from dfine_tpu_torch.infer.base import load_weights
+    from dfine_tpu_torch.infer.fuse import convert_to_deploy
+    from dfine_tpu_torch.models.dfine import build_model, set_compute_dtype
+
+    pth, frames = _serving_weights(res), _serve_frames()[:4]
+    out_dir = os.path.join(res["tmp"].name, "export")
+    t0 = time.perf_counter()
+    arts = export_model(SIZE, pth, NUM_CLASSES, out_dir, input_size=(IMG, IMG), half=True,
+                        enable_mask_head=True, device=DEV)
+    export_s = time.perf_counter() - t0
+    dyn = export_model(SIZE, pth, NUM_CLASSES, os.path.join(out_dir, "dyn"), (IMG, IMG),
+                       half=True, enable_mask_head=True, formats=("exported",),
+                       dynamic_batch=True, device=DEV)["exported"]
+    inp = os.path.join(out_dir, "x.npy")
+    x = np.random.default_rng(2).uniform(size=(1, 3, IMG, IMG)).astype(np.float32)
+    np.save(inp, x)
+    np.savez(os.path.join(out_dir, "frames.npz"), frames=np.stack(frames))
+    conf = res["mode_letterbox"].conf_thresh if "mode_letterbox" in res else 0.5
+    proc = subprocess.run([sys.executable, "-c", _EXPORTED_RUN, str(arts["exported"]), str(dyn),
+                           inp, os.path.join(out_dir, "frames.npz"), str(IMG), str(conf)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh process failed: {proc.stderr[-3000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    eager = load_weights(build_model(SIZE, NUM_CLASSES, True, device="cpu"), pth)
+    eager = set_compute_dtype(convert_to_deploy(eager), torch.bfloat16).to(DEV).eval()
+    with torch.inference_mode():
+        ref = {k: v.float().cpu().numpy()
+               for k, v in ServingProgram(eager)(torch.from_numpy(x).to(DEV)).items()}
+    with np.load(inp + ".out.npz") as z:
+        ours = {k: z[k] for k in z.files}
+    match = align_by_box(ref["boxes"][0], ours["boxes"][0])
+    box_gap = np.abs(ours["boxes"][0][match] - ref["boxes"][0]).max(-1)
+    keep = box_gap <= BOX_ATOL
+    score_err = float(np.abs(ours["scores"][0][match[keep]] - ref["scores"][0][keep]).max())
+    emit({"phase": "export", "export_seconds": export_s, "artifacts": sorted(arts),
+          "aot_manifest": open(arts["aot"]).read().strip().splitlines(),
+          "fresh_process": fresh, "vs_eager": {"matched_frac": float(keep.mean()),
+                                               "score_max_abs_err": score_err,
+                                               "score_atol": EXPORT_SCORE_ATOL}})
+    res["export_counts"] = fresh["deform_launches"]
+    if keep.mean() < MIN_MATCHED or score_err > EXPORT_SCORE_ATOL:
+        raise AssertionError(f"exported vs eager: matched {keep.mean():.3f}, scores {score_err}")
+    if fresh["deform_launches"] != DECODER_LAYERS * len(frames):
+        raise AssertionError(f"exported: {fresh['deform_launches']} deform launches")
+    if fresh["dynamic_batch_boxes"] != {"1": [1, 300, 4], "3": [3, 300, 4]}:
+        raise AssertionError(f"dynamic batch: {fresh['dynamic_batch_boxes']}")
+
+
 def in_situ_ms(res, kernel: str):
     """ms a launch of ``kernel`` in the default train step's profile (all its
     instances), or None where that step does not launch it."""
@@ -1659,7 +2210,11 @@ def kernel_line(res):
          "empty_launch_ms": d["empty_launch_ms"],
          "max_abs_err": d["max_abs_err"], "ms": d["ms"], "plain_ms": d["plain_ms"],
          "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
-         "path": f"serving, {SERVE_FRAMES} frames"},
+         "path": f"serving, {SERVE_FRAMES} frames",
+         "serving_modes_launches": {**res["serving_modes_counts"], "frames": MODE_FRAMES},
+         "deploy_launches": res["deploy_counts"], "int8_launches": res["int8_counts"],
+         "aot_graph_launches_per_frame_profiled": res["aot_counts"],
+         "export_launches": {"fresh_process": res["export_counts"], "frames": 4}},
     ] + [
         {"name": name, "route": "cuda", "source": "dfine_tpu_torch/csrc/rows_scatter_add_tile.cu",
          "replaces": f"dfine_tpu/ops/pallas/scatter_rows.py:{line}",
@@ -1697,7 +2252,8 @@ def main() -> int:
                phase_scatter_tiled, phase_core_backward, phase_model, phase_serving,
                phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,
-               phase_train_l_frozen):
+               phase_train_l_frozen, phase_serving_modes, phase_deploy, phase_int8,
+               phase_aot_graph, phase_export):
         t0 = time.perf_counter()
         try:
             fn(res)

@@ -4,9 +4,12 @@ The port of ``dfine_tpu`` (JAX, the reference it is held against). It
 imports torch, numpy, scipy (the train step's Hungarian solver) and the
 standard library only. Its entry points run on the card unless the caller
 passes ``device="cpu"``; hand-written CUDA kernels live in ``csrc/`` and
-are built at first use (``ops/kernels``). ``train/`` holds the detection
-train step.
+are built at first use (``ops/kernels``). ``infer/`` holds the serving
+backends (eager, int8, CUDA-graph and exported), ``export.py`` the export
+formats, ``train/`` the train step. Importing the package registers the
+custom op ``dfine_tpu_torch::ms_deform_attn_fwd`` that exported programs
+call.
 """
 
 from .models import build_model  # noqa: F401
-from .infer import TorchModel  # noqa: F401
+from .infer import AOTModel, ExportedModel, Int8Model, TorchModel  # noqa: F401

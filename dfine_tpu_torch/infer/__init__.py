@@ -1,1 +1,3 @@
-from .torch_model import TorchModel  # noqa: F401
+from .aot_model import AOTModel  # noqa: F401
+from .exported_model import ExportedModel  # noqa: F401
+from .torch_model import Int8Model, TorchModel  # noqa: F401

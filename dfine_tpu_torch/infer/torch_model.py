@@ -1,43 +1,74 @@
-"""Eager PyTorch serving backend (port of ``dfine_tpu/infer/jax_model.py``):
-model forward plus the NMS-free top-k decode on the card."""
+"""Eager PyTorch serving backends (port of ``dfine_tpu/infer/jax_model.py``):
+model forward plus the NMS-free top-k decode on the card. ``TorchModel``
+computes in bf16 or fp32, optionally on the deploy-fused model;
+``Int8Model`` is ``TorchModel`` on the int8-converted model."""
 
 from __future__ import annotations
 
-from pathlib import Path
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
-from ..models.dfine import build_model, set_compute_dtype
+from ..models.dfine import DFINE, build_model, set_compute_dtype
+from ..ops.kernels import check_kernel_limits
 from ..postprocess import topk_decode
-from ..utils.checkpoint import load_jax_variables, unflatten
-from .base import BaseServing
+from .base import BaseServing, load_weights
+from .fuse import convert_to_deploy
+from .int8 import convert_int8
 
 TOP_MASKS = 100  # masks kept for the strongest queries, in bf16 (jax_model.py:28-29)
 
 
+def decode(model: DFINE, images: torch.Tensor, num_top: int,
+           top_masks: Optional[int] = TOP_MASKS) -> Dict[str, torch.Tensor]:
+    """The serving program: forward, top-k decode, and the masks of the
+    ``top_masks`` strongest queries in bf16. ``top_masks=None`` keeps every
+    top-k query's mask in the model's dtype, as the exported program does
+    (``dfine_tpu/export.py:49-52``)."""
+    out = model(images)
+    dec = topk_decode(out["pred_logits"], out["pred_boxes"], num_top,
+                      masks=out.get("pred_masks"))
+    if "masks" in dec and top_masks is not None:
+        dec["masks"] = dec["masks"][:, :top_masks].to(torch.bfloat16)
+    return dec
+
+
 class TorchModel(BaseServing):
-    """``model_path``: None (``build_model``'s random weights) or an ``.npz``
-    of JAX variables as ``dfine_tpu.utils.checkpoint.save_params_npz`` writes
-    them, loaded through the weight bridge."""
+    """``deploy=True`` serves the deploy-fused model (``infer/fuse.py``),
+    as ``export_model(deploy=True)`` does."""
+
+    def __init__(self, *args, deploy: bool = False, **kwargs):
+        self.deploy = deploy
+        super().__init__(*args, **kwargs)
+
+    def _convert(self, model: DFINE) -> DFINE:
+        """The fp32 model with its weights -> what this backend serves."""
+        return convert_to_deploy(model) if self.deploy else model
 
     def _build(self, model_path: Optional[str]) -> None:
         dtype = torch.bfloat16 if self.half else torch.float32
         model = build_model(self.model_name, self.n_outputs, self.enable_mask_head,
                             dtype=torch.float32, device="cpu")
-        if model_path is not None:
-            p = Path(model_path)
-            if p.suffix != ".npz":
-                raise ValueError(f"unsupported weights file {p} (expected .npz)")
-            with np.load(p) as z:
-                load_jax_variables(model, unflatten({k: z[k] for k in z.files}))
+        model = self._convert(load_weights(model, model_path))
         self.model = set_compute_dtype(model, dtype).to(self.device).eval()
+        if self.device.type == "cuda":
+            check_kernel_limits(self.model)
 
     def _predict(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = self.model(images)
-        dec = topk_decode(out["pred_logits"], out["pred_boxes"], self.num_top_queries,
-                          masks=out.get("pred_masks"))
-        if "masks" in dec:
-            dec["masks"] = dec["masks"][:, :TOP_MASKS].to(torch.bfloat16)
-        return dec
+        return decode(self.model, images, self.num_top_queries)
+
+    def warmup(self, hw_buckets) -> None:
+        """One forward per (h, w) bucket: the shape's constants (anchors,
+        positional embedding) are made then, not on a first request."""
+        with torch.inference_mode():
+            for h, w in hw_buckets:
+                self._predict(torch.zeros((1, 3, h, w), device=self.device))
+
+
+class Int8Model(TorchModel):
+    """INT8 serving: the weights of every linear layer and in-projection in
+    int8, computed per ``infer.int8.set_int8_mode`` (``w8a8`` or
+    ``w8a16``); the convolutions in the compute dtype."""
+
+    def _convert(self, model: DFINE) -> DFINE:
+        return convert_int8(super()._convert(model))

@@ -78,7 +78,13 @@ class MSDeformableAttention(nn.Module):
         total_p = sum(self.num_points_list)
         self.sampling_offsets = nn.Linear(embed_dim, total_p * num_heads * 2)
         self.attention_weights = nn.Linear(embed_dim, total_p * num_heads)
-        self._scale_cache: Dict[str, torch.Tensor] = {}
+        # 1 / points of each point's level (the reference's num_points_scale
+        # buffer); not in the state_dict, as the reference importer skips it
+        self.register_buffer("num_points_scale", self._points_scale(), persistent=False)
+
+    def _points_scale(self) -> torch.Tensor:
+        return torch.tensor([1.0 / n for n in self.num_points_list for _ in range(n)],
+                            dtype=torch.float32)
 
     def init_special_(self, generator=None):
         nn.init.zeros_(self.sampling_offsets.weight)
@@ -87,14 +93,8 @@ class MSDeformableAttention(nn.Module):
                 offsets_bias_init(self.num_heads, self.num_points_list)))
         nn.init.zeros_(self.attention_weights.weight)
         nn.init.zeros_(self.attention_weights.bias)
-
-    def _np_scale(self, device) -> torch.Tensor:
-        key = str(device)
-        if key not in self._scale_cache:
-            s = [1.0 / n for n in self.num_points_list for _ in range(n)]
-            with torch.inference_mode(False):  # usable by autograd after serving
-                self._scale_cache[key] = torch.tensor(s, dtype=torch.float32, device=device)
-        return self._scale_cache[key]
+        with torch.no_grad():
+            self.num_points_scale.copy_(self._points_scale())
 
     def forward(self, query, reference_points, value, spatial_shapes):
         """query [B,Q,C], reference_points [B,Q,4] cxcywh, value [B,sumHW,nhead,d]."""
@@ -104,7 +104,7 @@ class MSDeformableAttention(nn.Module):
         attn = self.attention_weights(query).reshape(b, q, self.num_heads, total_p)
         attn = attn.float().softmax(-1)
         ref = reference_points.float()
-        off = (offsets.float() * self._np_scale(query.device)[:, None]
+        off = (offsets.float() * self.num_points_scale[:, None]
                * ref[:, :, None, None, 2:] * self.offset_scale)
         loc = ref[:, :, None, None, :2] + off  # [B,Q,H,P,2]
         out = ms_deform_attn(value, spatial_shapes, loc.contiguous(), attn.contiguous(),

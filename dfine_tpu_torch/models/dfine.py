@@ -11,6 +11,7 @@ import torch.nn as nn
 
 from ..configs import model_config
 from ..device import resolve_device
+from ..ops.kernels import check_kernel_limits
 from .decoder import DFINETransformer
 from .denoising import CdnNoise
 from .hgnetv2 import HGNetv2
@@ -120,10 +121,14 @@ def build_model(size: str, num_classes: int, enable_mask_head: bool = False,
     ``dtype`` casts the parameters, for serving; training keeps fp32
     parameters and computes in bf16 under autocast (``train.train_step``).
     ``cfg_overrides``: (("section.key", value), ...) patched over the size's
-    configuration, e.g. (("decoder.query_select_method", "agnostic"),)."""
+    configuration, e.g. (("decoder.query_select_method", "agnostic"),). On a
+    CUDA device a configuration beyond the kernels' limits raises here
+    (``check_kernel_limits``)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = DFINE(size, num_classes, enable_mask_head, cfg_overrides)
+    if dev.type == "cuda":
+        check_kernel_limits(model)
     model.to_empty(device="cpu")
     reset_parameters(model, torch.Generator().manual_seed(0))
     return set_compute_dtype(model, dtype).to(dev).eval()

@@ -119,7 +119,9 @@ class ConvBNA(nn.Module):
 
 
 class VGGBlock(nn.Module):
-    """RepVGG-style block: 3x3 + 1x1 branches summed, then act."""
+    """RepVGG-style block: 3x3 + 1x1 branches summed, then act. After deploy
+    fusion (``infer/fuse.py``) the 1x1 branch lives in the 3x3's centre tap
+    and ``conv2`` is None."""
 
     def __init__(self, in_ch, out_ch, act="silu"):
         super().__init__()
@@ -128,6 +130,8 @@ class VGGBlock(nn.Module):
         self.act = get_activation(act)
 
     def forward(self, x):
+        if self.conv2 is None:
+            return self.act(self.conv1(x))
         return self.act(self.conv1(x) + self.conv2(x))
 
 
@@ -180,7 +184,8 @@ class SCDown(nn.Module):
 
 class MultiHeadSelfAttention(nn.Module):
     """Packed-QKV attention with ``nn.MultiheadAttention``'s parameters;
-    matmul plus an fp32 softmax (layers.py:318-324)."""
+    matmul plus an fp32 softmax (layers.py:318-324). ``infer/int8.py`` may
+    replace the in-projection's parameters by an int8 module ``in_proj``."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -188,6 +193,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.in_proj = None
 
     def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
         """q/k/v [B, L, C]; mask bool [.., L, L], True = may attend (the CDN
@@ -197,7 +203,10 @@ class MultiHeadSelfAttention(nn.Module):
         w, b = self.in_proj_weight, self.in_proj_bias
 
         def proj(x, i):
-            y = F.linear(x, w[i * c : (i + 1) * c], b[i * c : (i + 1) * c])
+            if self.in_proj is not None:  # int8: the rows of q, k or v
+                y = self.in_proj(x, i * c, (i + 1) * c)
+            else:
+                y = F.linear(x, w[i * c : (i + 1) * c], b[i * c : (i + 1) * c])
             return y.reshape(y.shape[0], y.shape[1], h, d).transpose(1, 2)  # [B,h,L,d]
 
         wq, wk, wv = proj(q, 0), proj(k, 1), proj(v, 2)

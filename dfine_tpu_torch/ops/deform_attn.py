@@ -2,9 +2,11 @@
 ``dfine_tpu/ops/deform_attn.py:30-101, :273-437``).
 
 ``ms_deform_attn_core`` is the plain PyTorch gather formulation.
-``MSDeformAttnCore`` is the op the model runs: its forward is the sampling
-kernel, its backward computes the location and attention gradients in
-closed form (the corner tables of deform_attn.py:235-241) and sends each
+``MSDeformAttnCore`` is the op the model runs: its forward is the custom op
+``dfine_tpu_torch::ms_deform_attn_fwd`` (the sampling kernel on the card,
+the plain version on the CPU), its backward computes the location and
+attention gradients in closed form (the corner tables of
+deform_attn.py:235-241) and sends each
 level's value gradient through the scatter kernel that ``set_deform_bwd``
 chose, as ``ms_deform_attn_core_fused(scatter_impl=...)`` does:
 
@@ -23,8 +25,9 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+from .kernels.deform_attn import ms_deform_attn_fwd_plain, ms_deform_attn_op
 from .kernels.scatter_rows import rows_scatter_add, rows_scatter_add_mxu, rows_scatter_add_tiled
 
 ms_deform_attn_core = ms_deform_attn_fwd_plain
@@ -68,7 +71,8 @@ class MSDeformAttnCore(torch.autograd.Function):
         ctx.spatial_shapes = spatial_shapes
         ctx.num_points = num_points
         ctx.scatter = _SCATTERS[_DEFORM_BWD]
-        return ms_deform_attn_fwd(value, spatial_shapes, loc, att, num_points)
+        flat = [n for hw in spatial_shapes for n in hw]
+        return ms_deform_attn_op(value, flat, loc, att, list(num_points))
 
     @staticmethod
     def backward(ctx, g_out):
@@ -142,3 +146,12 @@ def ms_deform_attn(value, spatial_shapes, loc, att, num_points) -> torch.Tensor:
     """The deformable-attention core as the model calls it (through
     ``MSDeformAttnCore``). Returns [B, Q, nhead*d] f32."""
     return MSDeformAttnCore.apply(value, loc, att, spatial_shapes, num_points)
+
+
+def grid_sample_bilinear(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """grid_sample(bilinear, zero padding, align_corners=False) in the JAX
+    package's layout (``dfine_tpu/ops/deform_attn.py:440-471``): image [B, H,
+    W, C], grid [B, Hg, Wg, 2] in [-1, 1] (x, y) -> [B, Hg, Wg, C]."""
+    out = F.grid_sample(image.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)
+    return out.permute(0, 2, 3, 1)

@@ -19,6 +19,7 @@ from . import _build
 
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
 MAX_POINTS, MAX_LEVELS = 16, 4  # what the kernel takes (csrc: kMaxPoints, kMaxLevels)
+HEAD_DIMS = (16, 32)  # the head dims it is specialized on
 
 
 def _bilinear_gather_level(v: torch.Tensor, h: int, w: int, loc: torch.Tensor) -> torch.Tensor:
@@ -99,8 +100,8 @@ def ms_deform_attn_fwd(
     q, p = loc.shape[1], loc.shape[3]
     if value.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"value must be bf16 or f32, got {value.dtype}")
-    if d not in (16, 32):
-        raise ValueError(f"head dim {d} unsupported (16 or 32)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} unsupported {HEAD_DIMS}")
     if loc.dtype != torch.float32 or att.dtype != torch.float32:
         raise TypeError("loc and att must be f32")
     if tuple(loc.shape) != (b, q, nhead, p, 2) or tuple(att.shape) != (b, q, nhead, p):
@@ -137,3 +138,31 @@ def ms_deform_attn_fwd(
 
 
 ms_deform_attn_fwd.launches = 0
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(flat[i]), int(flat[i + 1])) for i in range(0, len(flat), 2))
+
+
+# The sampling core as a custom op, so that torch.export traces it (with the
+# fake below: the wrapper reads data_ptr(), which a fake tensor has not) and
+# a CUDA graph captures it. spatial_shapes go in flat: [h0, w0, h1, w1, ...].
+# Registered when this module is imported, so importing dfine_tpu_torch is
+# what a process needs to load an exported program that calls it.
+@torch.library.custom_op(
+    "dfine_tpu_torch::ms_deform_attn_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor value, int[] spatial_shapes, Tensor loc, Tensor att, int[] num_points) -> Tensor")
+def ms_deform_attn_op(value, spatial_shapes, loc, att, num_points):
+    """The CUDA implementation: the hand-written kernel."""
+    return ms_deform_attn_fwd(value, _pairs(spatial_shapes), loc, att, num_points)
+
+
+@ms_deform_attn_op.register_kernel("cpu")
+def _op_cpu(value, spatial_shapes, loc, att, num_points):
+    return ms_deform_attn_fwd_plain(value, _pairs(spatial_shapes), loc, att, num_points)
+
+
+@ms_deform_attn_op.register_fake
+def _op_fake(value, spatial_shapes, loc, att, num_points):
+    b, _, nhead, d = value.shape
+    return value.new_empty((b, loc.shape[1], nhead * d), dtype=torch.float32)

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX variables (numpy) -> this port's parameters.
+"""Weight bridge: JAX variables (numpy) <-> this port's parameters, and the
+reference's ``.pth`` weights.
 
 ``load_jax_variables`` takes the ``{"params", "batch_stats"}`` tree of a
 ``dfine_tpu`` model as numpy arrays and fills a port model in place. The
@@ -22,13 +23,21 @@ loads silently because in == out == 256. It is not the inverse of this map.)
 
 The bridge is strict both ways: every JAX leaf must be consumed, every port
 parameter and buffer written (BatchNorm's ``num_batches_tracked`` counter
-aside), and shapes must agree.
+aside), and shapes must agree. ``port_variables`` is its inverse (the
+``.npz`` that ``dfine_tpu.utils.checkpoint.save_params_npz`` would write).
+
+``load_torch_checkpoint`` reads a reference (uc-vision) ``.pth`` / ``.pt``
+state dict: the port's ``state_dict`` has that key layout, so after the
+class-head adaptation of ``dfine_tpu/utils/checkpoint.py:98-146`` it loads
+with ``load_state_dict(strict=True)``, skipping only the buffers the port
+derives itself (``_SKIP_SUFFIXES`` / ``_SKIP_EXACT``, :150-156).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Tuple
+from pathlib import Path
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -135,4 +144,121 @@ def load_jax_variables(model: nn.Module, variables_np: Dict) -> nn.Module:
     unused = sorted(set(flat) - used)
     if unused:
         raise ValueError(f"{len(unused)} JAX leaves not consumed, e.g. {unused[:5]}")
+    return model
+
+
+def port_to_jax(v: np.ndarray, transform: Optional[str], conv_transpose: bool) -> np.ndarray:
+    """The inverse of ``jax_to_port``."""
+    if transform == "conv":
+        if conv_transpose:
+            return v.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return v.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if transform == "linear":
+        return v.T
+    return v
+
+
+@torch.no_grad()
+def port_variables(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The port model's weights as flat JAX variables {"params/...",
+    "batch_stats/..."} (fp32 numpy), the layout of
+    ``dfine_tpu.utils.checkpoint.save_params_npz``."""
+    flat = {}
+    for key, tensor in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        fkey, transform = flax_key(key, tensor.dim())
+        module = model.get_submodule(key.rsplit(".", 1)[0])
+        v = tensor.detach().float().cpu().numpy()
+        flat[fkey] = np.ascontiguousarray(
+            port_to_jax(v, transform, isinstance(module, nn.ConvTranspose2d)))
+    return flat
+
+
+# --------------------------------------------------------- reference .pth --
+
+def _torch_state_dict(path: Path) -> Dict[str, torch.Tensor]:
+    """A .pth/.pt state dict, unwrapped from ``ema`` / ``model`` /
+    ``state_dict`` / ``module`` as the JAX importer does; ``weights_only``
+    so a file cannot run pickle code."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict):
+        for key in ("ema", "model", "state_dict"):
+            if key in obj:
+                obj = obj[key]
+                break
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj, dict) and "module" in obj:
+        obj = obj["module"]
+    return dict(obj)
+
+
+# COCO class index -> Objects365 class index (dfine_tpu/utils/checkpoint.py:101-107)
+OBJ365_IDS = [
+    0, 46, 5, 58, 114, 55, 116, 65, 21, 40, 176, 127, 249, 24, 56, 139, 92,
+    78, 99, 96, 144, 295, 178, 180, 38, 39, 13, 43, 120, 219, 148, 173, 165,
+    154, 137, 113, 145, 146, 204, 8, 35, 10, 88, 84, 93, 26, 112, 82, 265,
+    104, 141, 152, 234, 143, 150, 97, 2, 50, 25, 75, 98, 153, 37, 73, 115,
+    132, 106, 61, 163, 134, 277, 81, 133, 18, 94, 30, 169, 70, 328, 226,
+]
+
+
+def map_class_rows(cur: torch.Tensor, pretrain: torch.Tensor) -> torch.Tensor:
+    """Class-head rows between COCO and Objects365 indexing; rows without a
+    counterpart keep ``cur``."""
+    if pretrain.shape == cur.shape:
+        return pretrain
+    out = cur.clone()
+    if pretrain.shape[0] > cur.shape[0]:  # obj365 -> coco
+        for coco_id, obj_id in enumerate(OBJ365_IDS):
+            if coco_id < cur.shape[0]:
+                out[coco_id] = pretrain[obj_id + 1]
+    else:  # coco -> obj365
+        for coco_id, obj_id in enumerate(OBJ365_IDS):
+            if coco_id < pretrain.shape[0]:
+                out[obj_id + 1] = pretrain[coco_id]
+    return out
+
+
+def adjust_head_parameters(sd: Dict[str, torch.Tensor],
+                           current: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Score-head weights and biases row-mapped by ``map_class_rows``; a
+    denoising embedding of another size dropped (the model keeps its own)."""
+    sd = dict(sd)
+    key = "decoder.denoising_class_embed.weight"
+    if key in sd and key in current and tuple(sd[key].shape) != tuple(current[key].shape):
+        del sd[key]
+    head_names = ["decoder.enc_score_head.weight", "decoder.enc_score_head.bias"]
+    for i in range(8):
+        head_names += [f"decoder.dec_score_head.{i}.weight", f"decoder.dec_score_head.{i}.bias"]
+    for name in head_names:
+        if name in sd and name in current:
+            sd[name] = map_class_rows(current[name], sd[name])
+    return sd
+
+
+# buffers the reference saves and the port derives itself
+_SKIP_SUFFIXES = ("num_batches_tracked", "anchors", "valid_mask", "num_points_scale", "project")
+_SKIP_EXACT = {"decoder.up", "decoder.reg_scale", "decoder.decoder.up",
+               "decoder.decoder.reg_scale"}
+
+
+@torch.no_grad()
+def load_torch_checkpoint(model: nn.Module, path_or_sd: Union[str, Path, Dict]) -> nn.Module:
+    """Fill ``model`` in place from a reference ``.pth`` / ``.pt`` (or an
+    in-memory state dict): class heads adapted, the derived buffers
+    skipped, then ``load_state_dict(strict=True)``: any other key left over
+    or missing, or a shape that differs, raises."""
+    sd = (_torch_state_dict(Path(path_or_sd)) if isinstance(path_or_sd, (str, Path))
+          else dict(path_or_sd))
+    sd = {k: torch.as_tensor(v) for k, v in sd.items()
+          if not (k.endswith(_SKIP_SUFFIXES) or k in _SKIP_EXACT)}
+    current = model.state_dict()
+    sd = adjust_head_parameters(sd, current)
+    for k, v in current.items():  # what the port keeps of its own
+        if k not in sd and (k.endswith("num_batches_tracked")
+                            or k == "decoder.denoising_class_embed.weight"):
+            sd[k] = v
+    model.load_state_dict(sd, strict=True)
     return model

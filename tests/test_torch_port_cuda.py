@@ -53,6 +53,25 @@ def test_deform_fwd_kernel_matches_plain(cuda, d, shapes, pts, value_dtype, b, q
     assert (out - ref).abs().max().item() <= 1e-5
 
 
+# rect serving at m@640: the levels of the 16:9 (1080x1920 -> 384x640), 9:16
+# and 4:3 (1200x1600 -> 480x640) canvases
+RECT_SHAPES = (((48, 80), (24, 40), (12, 20)), ((80, 48), (40, 24), (20, 12)),
+               ((60, 80), (30, 40), (15, 20)))
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", RECT_SHAPES, ids=lambda s: "x".join(map(str, s[0])))
+def test_deform_fwd_kernel_on_rect_levels(cuda, shapes, value_dtype):
+    """Non-square levels, rows and columns of different lengths (B = 1, 300
+    queries, points (3, 6, 3)): max abs error <= 1e-5."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+
+    value, loc, att = _inputs(cuda, 1, 300, 8, 32, shapes, M_POINTS, value_dtype, seed=5)
+    out = ms_deform_attn_fwd(value, shapes, loc, att, M_POINTS)
+    ref = ms_deform_attn_fwd_plain(value, shapes, loc, att, M_POINTS)
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", DEFORM_CASES)
 def test_deform_fwd_kernel_on_cases(cuda, case, value_dtype):
@@ -302,3 +321,58 @@ def test_core_backward_through_bf16_scatters(cuda, impl):
     torch.testing.assert_close(gv, rv, rtol=5e-2, atol=2e-2)
     for ours, ref in ((gl, rl), (ga, ra)):
         assert (ours - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+def test_custom_op_launches_the_kernel(cuda, value_dtype):
+    """``dfine_tpu_torch::ms_deform_attn_fwd`` on CUDA tensors launches the
+    kernel (one count a call) and matches the plain version within 1e-5."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+
+    value, loc, att = _inputs(cuda, 1, 300, 8, 32, M_SHAPES, M_POINTS, value_dtype)
+    flat = [n for hw in M_SHAPES for n in hw]
+    before = ms_deform_attn_fwd.launches
+    out = torch.ops.dfine_tpu_torch.ms_deform_attn_fwd(value, flat, loc, att, list(M_POINTS))
+    torch.cuda.synchronize()
+    assert ms_deform_attn_fwd.launches == before + 1
+    ref = ms_deform_attn_fwd_plain(value, M_SHAPES, loc, att, M_POINTS)
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+def test_custom_op_in_a_cuda_graph(cuda):
+    """The op captured in a CUDA graph (after a warm-up on a side stream)
+    and replayed on new inputs copied into the static ones: bit-equal to an
+    eager call on those inputs."""
+    value, loc, att = _inputs(cuda, 1, 300, 8, 32, M_SHAPES, M_POINTS, torch.bfloat16, seed=1)
+    flat, pts = [n for hw in M_SHAPES for n in hw], list(M_POINTS)
+    op = torch.ops.dfine_tpu_torch.ms_deform_attn_fwd
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(value, flat, loc, att, pts)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = op(value, flat, loc, att, pts)
+    v2, l2, a2 = _inputs(cuda, 1, 300, 8, 32, M_SHAPES, M_POINTS, torch.bfloat16, seed=2)
+    value.copy_(v2)
+    loc.copy_(l2)
+    att.copy_(a2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, op(v2, flat, l2, a2, pts))
+
+
+@pytest.mark.parametrize("m", [1, 17, 300])
+def test_int_mm_is_the_exact_integer_product(cuda, m):
+    """The int8 serving product on the card (``torch._int_mm`` behind
+    ``infer.int8._int_product``, short inputs padded to 17 rows) equals the
+    exact integer product, at K = 1024 (the largest sum: 1024 * 127^2)."""
+    from dfine_tpu_torch.infer.int8 import _int_product
+
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, 1024), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (256, 1024), generator=g, dtype=torch.int8)
+    out = _int_product(a.to(cuda), b.to(cuda))
+    assert out.dtype == torch.int32
+    assert torch.equal(out.cpu().long(), a.long() @ b.long().T)

@@ -72,7 +72,9 @@ def test_train_mode_mask_outputs_match_jax(setup, fixed_dn_key):
     at most 1e-5 of its elements (2 of 819200), which stay within 5e-4: the
     train-mode BatchNorms at batch 2 carry the backbone's and encoder's
     rounding differences into the decoder's inputs, and the pixel decoder's
-    own BatchNorms scale them up. The ``mask_embed`` of the final and aux
+    own BatchNorms scale them up. With both sides in float64 every element
+    agrees within 2e-12 (tests/test_torch_port_float64.py), so the excess
+    is float32 rounding. The ``mask_embed`` of the final and aux
     sets aligned by box on the final layer (>= 98 % of queries matched 1:1),
     of the DN sets in their fixed order, atol 2e-3, rtol 1e-2; the
     BatchNorm statistics the forward updated, the pixel decoder's
