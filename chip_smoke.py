@@ -77,7 +77,25 @@ re-drawn from seed 1):
     .pt2; a fresh process imports ``dfine_tpu_torch``, loads and serves
     them; the program's outputs against the eager fused model.
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit as
+The trainer entry point:
+
+18. trainer: ``Trainer(cfg).train()`` (what ``python -m
+    dfine_tpu_torch.apps.train`` runs) with the repo's config.yaml read by
+    the port's reader: m det+seg at 640 px, batch 8, bf16, 2 epochs on a
+    synthetic segment dataset of 40 PNG frames at 720x1280 (32 train, 8
+    val; mosaic in epoch 0), with the launches of the whole run (4 sampling
+    launches a step and an eval batch, 12 scatters a step); step and loader
+    wait p50/p90, eval ms an image (device and host tail), checkpoint
+    seconds and MB, peak memory, the image decoder and plot writer used.
+    Then a fresh trainer resumed from ``last`` for a third epoch (step,
+    optimizer count and best_metric carried), ``TorchModel`` serving
+    ``best`` against the trainer's own eval of the same input, and one
+    sampling call of the trainer's eval and one scatter call of its step
+    against their plain versions.
+
+The first line says which optional packages (PIL, matplotlib, yaml,
+imageio, torchvision) the card's Python imports. Then one
+``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi gives them, and, if every phase passed, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -87,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import json
 import math
 import os
@@ -193,6 +212,19 @@ NOISE_REL = 1e-6
 WRONG_MODE_MARGIN = 3.0
 GRAPH_ATOL = 1e-5
 EXPORT_SCORE_ATOL = 1e-3
+# the trainer entry point: a synthetic segment dataset of 720p PNG frames, m
+# det+seg at 640 px, batch 8, bf16, 2 epochs then a resumed third; serving
+# best (fp32) against the trainer's eval of the same input: the same weights
+# and kernels on the same tensor, so expected equal
+TRAINER_FRAMES, TRAINER_TRAIN_FRAMES, TRAINER_HW, TRAINER_CLASSES = 40, 32, (720, 1280), 3
+TRAINER_BATCH, TRAINER_EPOCHS = 8, 2
+# train.csv lists each train frame this many times (each listing its own
+# sample: own augmentations, own cache entry), so that an epoch is long
+# enough for the loader to run behind the steps: 32 steps an epoch
+TRAINER_REPEAT = 8
+SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
+# packages the port may use where present, never needs: the run reports which import
+OPTIONAL_PACKAGES = ("PIL", "matplotlib", "yaml", "imageio", "torchvision")
 
 
 def emit(obj) -> None:
@@ -2177,6 +2209,303 @@ def phase_export(res):
         raise AssertionError(f"dynamic batch: {fresh['dynamic_batch_boxes']}")
 
 
+def write_segment_dataset(root: str, n: int, n_train: int, hw, seed: int, repeat: int = 1) -> str:
+    """A YOLO segment dataset under ``root/data/dataset``: ``n`` PNG frames
+    of ``hw`` (a smooth background), each with 2-8 filled shapes over
+    TRAINER_CLASSES classes (class 0 ellipses, 1 and 2 random polygons of 3-7
+    vertices) and their polygon labels; the first ``n_train`` frames in
+    train.csv, each listed ``repeat`` times, the rest in val.csv. Returns the
+    dataset's directory."""
+    from dfine_tpu_torch.data.image_io import write_png
+    from dfine_tpu_torch.data.labels import fill_poly
+
+    ds = os.path.join(root, "data", "dataset")
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(ds, sub), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    base = (np.linspace(30, 110, w)[None, :, None] + np.linspace(0, 50, h)[:, None, None]
+            + np.asarray([0, 10, 20])[None, None, :]).astype(np.uint8)
+    colours = np.asarray([(230, 60, 60), (60, 220, 60), (70, 90, 240)], np.uint8)
+    names = []
+    for i in range(n):
+        img, lines = base.copy(), []
+        for _ in range(int(rng.integers(2, 9))):
+            cls = int(rng.integers(0, TRAINER_CLASSES))
+            cx, cy = rng.uniform(0.15, 0.85, 2)
+            rx, ry = rng.uniform(0.04, 0.15, 2)
+            if cls == 0:
+                ang, rad = np.linspace(0, 2 * np.pi, 32, endpoint=False), np.ones(32)
+            else:
+                k = int(rng.integers(3, 8))
+                ang, rad = np.sort(rng.uniform(0, 2 * np.pi, k)), rng.uniform(0.6, 1.0, k)
+            pts = np.stack([cx + rx * rad * np.cos(ang), cy + ry * rad * np.sin(ang)], -1)
+            mask = np.zeros((h, w), np.uint8)
+            fill_poly(mask, np.round(pts * (w, h)).astype(np.int32))
+            img[mask.astype(bool)] = colours[cls]
+            lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in pts.reshape(-1)))
+        name = f"frame{i:03d}.png"
+        write_png(os.path.join(ds, "images", name), img)
+        with open(os.path.join(ds, "labels", f"frame{i:03d}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        names.append(name)
+    for split, part in (("train", names[:n_train] * repeat), ("val", names[n_train:])):
+        with open(os.path.join(ds, f"{split}.csv"), "w") as f:
+            f.write("".join(f"{x}\n" for x in part))
+    return ds
+
+
+@contextlib.contextmanager
+def captured_trainer_calls(trainer, calls: dict):
+    """Keep, in ``calls``, copies of the inputs of the first sampling-kernel
+    call of the trainer's eval (``"deform"``) and of the first default
+    value-gradient scatter of its steps (``"scatter"``); every call still goes
+    on to its kernel."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    op, kernel, decode = tda.ms_deform_attn_op, tda.rows_scatter_add, trainer.decode
+    in_eval = []
+
+    def deform(value, flat, loc, att, pts):
+        if in_eval and "deform" not in calls:
+            calls["deform"] = (value.clone(), tuple(zip(flat[::2], flat[1::2])), loc.clone(),
+                               att.clone(), tuple(pts))
+        return op(value, flat, loc, att, pts)
+
+    def scatter(idx, contrib, hw):
+        if "scatter" not in calls:
+            calls["scatter"] = (idx.clone(), contrib.clone(), hw)
+        return kernel(idx, contrib, hw)
+
+    def eval_decode(images):
+        in_eval.append(True)
+        try:
+            return decode(images)
+        finally:
+            in_eval.pop()
+
+    tda.ms_deform_attn_op = deform
+    tda.rows_scatter_add = tda._SCATTERS["pallas"] = scatter
+    trainer.decode = eval_decode
+    try:
+        yield calls
+    finally:
+        tda.ms_deform_attn_op = op
+        tda.rows_scatter_add = tda._SCATTERS["pallas"] = kernel
+        del trainer.decode
+
+
+def _trainer_run(trainer) -> dict:
+    """``trainer.train()`` with every launch count set to 0 just before and
+    read just after; fails on a caught crash (the trainer logs it and still
+    runs its final eval) and on counts other than DECODER_LAYERS sampling
+    launches a step and an eval batch and 3 x DECODER_LAYERS scatters a
+    step."""
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    bs = trainer.cfg.train.batch_size
+    reset_launch_counts()  # the main path of this phase: the trainer's whole run
+    t0 = time.perf_counter()
+    final = trainer.train()
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if trainer.failure is not None:
+        raise AssertionError(f"trainer: the run failed: {trainer.failure!r}")
+    steps = len(trainer.timing["step_s"])
+    eval_batches = sum(-(-e["images"] // bs) for e in trainer.timing["eval"])
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS * (steps + eval_batches),
+            "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+    if counts != want:
+        raise AssertionError(f"trainer: launches {counts}, want {want} ({steps} steps, "
+                             f"{eval_batches} eval batches)")
+    return {"seconds": seconds, "steps": steps, "eval_batches": eval_batches,
+            "launches": counts, "final": final}
+
+
+def _step_numbers(step_s, wait_s) -> dict:
+    """p50/p90 of the step and of the loader's wait before it, the mean
+    wait, and the step plus its wait (what an epoch pays a step), in ms."""
+    if not step_s:
+        return {"steps": 0}
+    step50, step90 = percentiles(step_s)
+    wait50, wait90 = percentiles(wait_s)
+    return {"steps": len(step_s), "step_p50_ms": step50, "step_p90_ms": step90,
+            "loader_wait_p50_ms": wait50, "loader_wait_p90_ms": wait90,
+            "loader_wait_mean_ms": float(np.mean(wait_s) * 1e3),
+            "step_plus_wait_mean_ms": float(np.mean(np.add(step_s, wait_s)) * 1e3)}
+
+
+def _trainer_numbers(trainer) -> dict:
+    """The host timings a trainer kept: step and loader wait a step, over
+    all steps, over the steps that ended while the loader was still making
+    the epoch's batches ("loader_busy"), and over the epoch's tail after it
+    had made the last one; eval ms an image by part (the per-epoch evals);
+    checkpoint writes."""
+    tm = trainer.timing
+    busy = tm["loader_busy"]
+    split = {name: _step_numbers([s for s, b in zip(tm["step_s"], busy) if b == want],
+                                 [w for w, b in zip(tm["loader_wait_s"], busy) if b == want])
+             for name, want in (("loader_busy", True), ("epoch_tail", False))}
+    epoch_evals = [e for e in tm["eval"] if not e.get("extended")]
+    n_img = sum(e["images"] for e in epoch_evals)
+    return {**_step_numbers(tm["step_s"], tm["loader_wait_s"]), **split,
+            "step_ms": [s * 1e3 for s in tm["step_s"]],
+            "loader_wait_ms": [s * 1e3 for s in tm["loader_wait_s"]],
+            "loader_busy_by_step": busy,
+            "eval_ms_per_image": {k: sum(e[f"{k}_s"] for e in epoch_evals) * 1e3 / n_img
+                                  for k in ("load", "device", "tail")},
+            "eval_images": n_img,
+            "checkpoints": [{"tag": c["tag"], "seconds": c["seconds"], "mb": c["bytes"] / 2**20}
+                            for c in tm["checkpoint"]]}
+
+
+def _finite_metrics(d) -> bool:
+    if isinstance(d, dict):
+        return all(_finite_metrics(v) for v in d.values())
+    return not isinstance(d, (int, float)) or math.isfinite(d)
+
+
+def phase_trainer(res):
+    """The trainer entry point on the card (``Trainer(cfg).train()``, the
+    body of ``python -m dfine_tpu_torch.apps.train``): the repo's config.yaml
+    through the port's reader, m det+seg at 640 px, batch 8, bf16, 2 epochs
+    on a synthetic segment dataset (TRAINER_FRAMES PNG frames at 720x1280,
+    mosaic on in epoch 0), then a fresh trainer resumed from ``last`` for a
+    third epoch, then ``TorchModel`` serving ``best``, held against the
+    trainer's own eval of the same input; one sampling call of the trainer's
+    eval and one scatter call of its step held against their plain
+    versions."""
+    import tempfile
+
+    import torch
+
+    from dfine_tpu_torch import TorchModel
+    from dfine_tpu_torch.config import load_config
+    from dfine_tpu_torch.data.image_io import decoder_name, read_image
+    from dfine_tpu_torch.ops.kernels import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+    from dfine_tpu_torch.postprocess import postprocess_predictions
+    from dfine_tpu_torch.train.trainer import Trainer
+    from dfine_tpu_torch.utils.checkpoint import read_state
+
+    tmp = tempfile.TemporaryDirectory()
+    root, failures = tmp.name, []
+    t0 = time.perf_counter()
+    ds = write_segment_dataset(root, TRAINER_FRAMES, TRAINER_TRAIN_FRAMES, TRAINER_HW, seed=3,
+                               repeat=TRAINER_REPEAT)
+    data_s = time.perf_counter() - t0
+    run_dir = os.path.join(root, "run")
+    overrides = [f"train.root={root}", f"train.path_to_save={run_dir}", f"model_name={SIZE}",
+                 "task=segment", f"train.img_size=[{IMG}, {IMG}]",
+                 f"train.batch_size={TRAINER_BATCH}", f"train.epochs={TRAINER_EPOCHS}",
+                 "train.mosaic_augs.mosaic_prob=0.5", "train.mosaic_augs.no_mosaic_epochs=1",
+                 "train.dtype=bfloat16", "train.use_wandb=False", "train.pretrained_model_path=",
+                 "train.label_to_name={0: ellipse, 1: polygon, 2: blob}"]
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config.yaml")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(load_config(config, overrides), device=DEV)
+    calls: dict = {}
+    with captured_trainer_calls(trainer, calls):
+        first = _trainer_run(trainer)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    files = sorted(os.listdir(run_dir))
+    missing = [f for f in ("last.ckpt", "best.ckpt", "best.meta.json", "metrics.csv",
+                           "extended_metrics.csv", "config.yaml") if f not in files]
+    with open(os.path.join(run_dir, "metrics.csv"), newline="") as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    finite = all(math.isfinite(v) for v in losses) and _finite_metrics(first["final"])
+    last = read_state(os.path.join(run_dir, "last.ckpt"))
+    first_best = trainer.best_metric
+    if missing or not finite or len(losses) != TRAINER_EPOCHS:
+        failures.append(f"first run: missing {missing}, finite {finite}, {len(losses)} epochs")
+
+    # the captured kernel calls against their plain versions
+    value, shapes, loc, att, pts = calls["deform"]
+    deform_err = (ms_deform_attn_fwd(value, shapes, loc, att, pts)
+                  - ms_deform_attn_fwd_plain(value, shapes, loc, att, pts)).abs().max().item()
+    idx, contrib, hw = calls["scatter"]
+    ours, plain = sr.rows_scatter_add(idx, contrib, hw), sr.rows_scatter_add_plain(idx, contrib, hw)
+    scatter_err = (ours - plain).abs().max().item()
+    scatter_ok = torch.allclose(ours, plain, atol=SCATTER_ATOL, rtol=SCATTER_RTOL)
+    del ours, plain
+    if not deform_err <= FWD_TOL or not scatter_ok:
+        failures.append(f"captured calls vs plain: deform {deform_err} (atol {FWD_TOL}), "
+                        f"scatter {scatter_err} (atol {SCATTER_ATOL}, rtol {SCATTER_RTOL})")
+    del calls
+
+    # a fresh trainer resumed from last for one more epoch
+    resumed = Trainer(load_config(config, overrides + ["train.resume=True",
+                                                       f"train.epochs={TRAINER_EPOCHS + 1}"]),
+                      device=DEV)
+    resumed.load_checkpoint("last")  # as its train() does first: the carried state
+    carried = {"step": resumed.state.step, "optimizer_count": resumed.state.optimizer.count,
+               "best_metric": resumed.best_metric}
+    want_carried = {"step": last["step"], "optimizer_count": last["count"],
+                    "best_metric": first_best}
+    second = _trainer_run(resumed)
+    end = read_state(os.path.join(run_dir, "last.ckpt"))
+    steps_per_epoch = first["steps"] // TRAINER_EPOCHS
+    if (carried != want_carried or last["step"] != first["steps"]
+            or resumed.start_epoch != TRAINER_EPOCHS or second["steps"] != steps_per_epoch
+            or end["step"] != first["steps"] + steps_per_epoch
+            or not _finite_metrics(second["final"])):
+        failures.append(f"resume: carried {carried}, want {want_carried}; start epoch "
+                        f"{resumed.start_epoch}; steps {first['steps']} + {second['steps']}; "
+                        f"last step {end['step']}")
+
+    # TorchModel serving best, against the trainer's eval of the same input (fp32)
+    frame = read_image(os.path.join(ds, "images", "frame%03d.png" % TRAINER_TRAIN_FRAMES))
+    served = TorchModel(SIZE, os.path.join(run_dir, "best.ckpt"), TRAINER_CLASSES, IMG, IMG,
+                        conf_thresh=0.0, half=False, enable_mask_head=True, device=DEV)
+    ema = resumed.eval_model().state_dict()  # the final eval reloaded best
+    same_weights = all(torch.equal(v, ema[k]) for k, v in served.model.state_dict().items())
+    ours = served(frame[..., ::-1])[0]
+    x, proc, orig, _ = served._prepare_inputs(frame[..., ::-1])
+    resumed.dtype = torch.float32
+    ref = postprocess_predictions(resumed.decode(x), proc[0], orig, 0.0, False)[0]
+    serve_gap = {"scores": float(np.abs(ours["scores"] - ref["scores"]).max()),
+                 "boxes_px": float(np.abs(ours["boxes"] - ref["boxes"]).max()),
+                 "labels_equal": bool(np.array_equal(ours["labels"], ref["labels"])),
+                 "mask_pixels_differing": float((ours["masks"] != ref["masks"]).mean())}
+    if not (same_weights and serve_gap["scores"] <= SERVE_SCORE_ATOL
+            and serve_gap["boxes_px"] <= SERVE_BOX_ATOL_PX and serve_gap["labels_equal"]
+            and serve_gap["mask_pixels_differing"] <= SERVE_MASK_SHARE):
+        failures.append(f"serving best: same weights {same_weights}, gaps {serve_gap}")
+    emit({"phase": "trainer", "model": f"{SIZE} det+seg {IMG}px, bf16, batch {TRAINER_BATCH}",
+          "dataset": f"{TRAINER_FRAMES} PNG frames {TRAINER_HW[0]}x{TRAINER_HW[1]}, "
+                     f"{TRAINER_TRAIN_FRAMES} train listed {TRAINER_REPEAT}x, "
+                     f"{TRAINER_CLASSES} classes",
+          "dataset_write_seconds": data_s,
+          "run_seconds": first["seconds"], "steps": first["steps"],
+          "eval_batches": first["eval_batches"], "launches": first["launches"],
+          **_trainer_numbers(trainer), "peak_memory_gb": peak_gb,
+          "metrics_csv_loss": losses, "final_val": first["final"]["val"],
+          "best_metric": first_best, "files": files,
+          "resume": {"carried": carried, "start_epoch": resumed.start_epoch,
+                     "seconds": second["seconds"], "steps": second["steps"],
+                     "eval_batches": second["eval_batches"], "launches": second["launches"],
+                     "last_step": end["step"],
+                     **{k: v for k, v in _trainer_numbers(resumed).items()
+                        if k in ("loader_busy", "epoch_tail", "step_ms", "loader_wait_ms",
+                                 "loader_busy_by_step")}},
+          "serving_best": {**serve_gap, "same_weights": same_weights,
+                           "atol": {"scores": SERVE_SCORE_ATOL, "boxes_px": SERVE_BOX_ATOL_PX,
+                                    "mask_share": SERVE_MASK_SHARE}},
+          "captured_vs_plain": {"ms_deform_attn_fwd": {"levels": shapes, "max_abs_err": deform_err,
+                                                       "value": str(value.dtype)},
+                                "rows_scatter_add": {"hw": hw, "max_abs_err": scatter_err}},
+          "image_decoder": decoder_name(), "plot_writer": trainer.plot_writer})
+    res["trainer_counts"] = {k: first["launches"][k] + second["launches"][k]
+                             for k in first["launches"]}
+    del trainer, resumed, served
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    if failures:
+        raise AssertionError("trainer: " + "; ".join(failures))
+
+
 def in_situ_ms(res, kernel: str):
     """ms a launch of ``kernel`` in the default train step's profile (all its
     instances), or None where that step does not launch it."""
@@ -2205,6 +2534,7 @@ def kernel_line(res):
          "train_launches": res["train_counts"]["ms_deform_attn_fwd"],
          "train_seg_launches": res["train_seg_counts"]["ms_deform_attn_fwd"],
          "train_l_launches": res["train_l_counts"]["ms_deform_attn_fwd"],
+         "trainer_launches": res["trainer_counts"]["ms_deform_attn_fwd"],
          "train_shape_ms": res["deform_train"]["ms"],
          "train_in_situ_ms": in_situ_ms(res, "ms_deform_attn_fwd_kernel"),
          "empty_launch_ms": d["empty_launch_ms"],
@@ -2221,6 +2551,7 @@ def kernel_line(res):
          "launches": res[counts][name], "max_abs_err": res[name]["max_abs_err"],
          "train_seg_launches": res["train_seg_counts"][name],
          "train_l_launches": res["train_l_counts"][name],
+         "trainer_launches": res["trainer_counts"][name],
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
          "library_ms": res[name]["library_ms"], "path": path,
@@ -2228,6 +2559,16 @@ def kernel_line(res):
          "step_inputs_ms": res["in_situ"][name]}
         for name, line, counts, path, symbol in scatters
     ]}
+
+
+def _importable(name: str) -> bool:
+    import importlib
+
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
 
 
 def main() -> int:
@@ -2246,6 +2587,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    emit({"optional_packages_importable": {n: _importable(n) for n in OPTIONAL_PACKAGES}})
 
     res, failed = {}, []
     for fn in (phase_build, phase_deform_fwd, phase_scatter, phase_scatter_mxu,
@@ -2253,7 +2595,7 @@ def main() -> int:
                phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,
                phase_train_l_frozen, phase_serving_modes, phase_deploy, phase_int8,
-               phase_aot_graph, phase_export):
+               phase_aot_graph, phase_export, phase_trainer):
         t0 = time.perf_counter()
         try:
             fn(res)

@@ -12,9 +12,11 @@ classes, which resize uint8 frames with cv2 on the host, the port ships the
 uint8 frame to the card and resizes floats there (as ``bench.py`` does).
 
 Weights: ``None`` (``build_model``'s seeded random weights), an ``.npz`` of
-JAX variables (``dfine_tpu.utils.checkpoint.save_params_npz``'s layout) or
-a reference ``.pth`` / ``.pt``. Restoring a trainer state waits for the
-port's trainer.
+JAX variables (``dfine_tpu.utils.checkpoint.save_params_npz``'s layout), a
+reference ``.pth`` / ``.pt``, or a ``.ckpt`` trainer checkpoint of the
+port's ``Trainer``, served with its EMA weights (its model's weights where
+it trained without EMA). A directory, the JAX trainer's orbax state,
+raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from ..device import resolve_device
 from ..ops.nms import batched_class_nms
 from ..ops.preprocess import preprocess_letterbox, preprocess_plain, preprocess_rect, rect_bucket
 from ..postprocess import postprocess_predictions
-from ..utils.checkpoint import load_jax_variables, load_torch_checkpoint, unflatten
+from ..utils.checkpoint import (load_jax_variables, load_torch_checkpoint, read_state,
+                                unflatten)
 from .contours import mask2poly
 
 
@@ -53,15 +56,17 @@ def load_weights(model: torch.nn.Module, model_path: Optional[str]) -> torch.nn.
     if model_path is None:
         return model
     p = Path(model_path)
-    if p.is_dir():
-        raise NotImplementedError(f"{p} is a directory: restoring a trainer state is not "
-                                  "ported yet; pass an .npz or a .pth")
+    if p.is_dir() or p.suffix == ".ckpt":
+        ck = read_state(p)
+        use_ema = ck["meta"].get("use_ema", True)
+        model.load_state_dict(ck["ema"] if use_ema else ck["model"], strict=True)
+        return model
     if p.suffix == ".npz":
         with np.load(p) as z:
             return load_jax_variables(model, unflatten({k: z[k] for k in z.files}))
     if p.suffix in (".pth", ".pt"):
         return load_torch_checkpoint(model, p)
-    raise ValueError(f"unsupported weights file {p} (expected .npz, .pth or .pt)")
+    raise ValueError(f"unsupported weights file {p} (expected .npz, .pth, .pt or .ckpt)")
 
 
 class BaseServing:

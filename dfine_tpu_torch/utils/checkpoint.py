@@ -262,3 +262,86 @@ def load_torch_checkpoint(model: nn.Module, path_or_sd: Union[str, Path, Dict]) 
             sd[k] = v
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# ------------------------------------------------------ trainer states --
+
+STATE_FORMAT = "dfine_tpu_torch.train_state"
+
+
+def state_dict_of(state, generator: Optional[torch.Generator] = None,
+                  meta: Optional[Dict] = None) -> Dict:
+    """The whole of a ``train.train_step.TrainState`` as one dict of CPU
+    tensors and plain values: model and EMA (parameters and buffers), the
+    step, AdamW's moments and steps, the optimizer's count, its micro-step
+    and the running mean of an unfinished accumulation, and the state of the
+    CDN noise's generator."""
+    opt = state.optimizer
+    index = {p: i for i, p in enumerate(opt.params)}
+
+    def cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu().clone()
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree
+
+    return {
+        "format": STATE_FORMAT,
+        "meta": dict(meta or {}),
+        "step": int(state.step),
+        "model": cpu(state.model.state_dict()),
+        "ema": cpu(state.ema.state_dict()),
+        "adamw": cpu(opt.adamw.state_dict()),
+        "count": int(opt.count),
+        "mini_step": int(opt.mini_step),
+        "accum_mean": {index[p]: cpu(m) for p, m in opt._mean.items()},
+        "generator": None if generator is None else generator.get_state().clone(),
+    }
+
+
+def save_state(path: Union[str, Path], state, generator: Optional[torch.Generator] = None,
+               meta: Optional[Dict] = None) -> int:
+    """Write ``state_dict_of(...)`` to ``path`` (``torch.save``, written to
+    a temporary name, then renamed); returns its bytes."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(state_dict_of(state, generator, meta), tmp)
+    tmp.replace(path)
+    return path.stat().st_size
+
+
+def read_state(path: Union[str, Path]) -> Dict:
+    """A trainer checkpoint of this package as saved by ``save_state``. A
+    directory (the JAX package's orbax checkpoint) raises: reading it needs
+    orbax, which the port does not use."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path} is a directory: a JAX trainer state (orbax); reading it needs orbax, "
+            "which the port does not use. Export its weights as .npz "
+            "(dfine_tpu.utils.checkpoint.save_params_npz) and load that.")
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(obj, dict) and obj.get("format") == STATE_FORMAT):
+        raise ValueError(f"{path} is not a trainer checkpoint of dfine_tpu_torch")
+    return obj
+
+
+@torch.no_grad()
+def restore_state(path: Union[str, Path], state,
+                  generator: Optional[torch.Generator] = None) -> Dict:
+    """Fill ``state`` (and ``generator``) in place from ``save_state``'s
+    file; returns the file's meta."""
+    ck = read_state(path)
+    state.model.load_state_dict(ck["model"], strict=True)
+    state.ema.load_state_dict(ck["ema"], strict=True)
+    state.step = ck["step"]
+    opt = state.optimizer
+    opt.adamw.load_state_dict(ck["adamw"])
+    opt.count, opt.mini_step = ck["count"], ck["mini_step"]
+    opt._mean = {opt.params[i]: m.to(opt.params[i].device) for i, m in ck["accum_mean"].items()}
+    if generator is not None and ck["generator"] is not None:
+        generator.set_state(ck["generator"])
+    return ck["meta"]

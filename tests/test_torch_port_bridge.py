@@ -92,16 +92,23 @@ def test_upconv_mapping_matches_flax_conv_transpose():
     np.testing.assert_allclose(ours.numpy().transpose(0, 2, 3, 1), ref, atol=1e-5)
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "dfine_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "yaml", "dfine_tpu")
+# imported lazily, inside the one function that uses each, never by an import
+LAZY = ("PIL", "matplotlib")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Importing every module of the port (``apps.train`` included) loads
+    nothing of FORBIDDEN and nothing of LAZY."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dfine_tpu_torch\n"
-        "for m in pkgutil.walk_packages(dfine_tpu_torch.__path__, 'dfine_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "names = [m.name for m in pkgutil.walk_packages(dfine_tpu_torch.__path__, "
+        "'dfine_tpu_torch.')]\n"
+        "assert 'dfine_tpu_torch.apps.train' in names, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + LAZY!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

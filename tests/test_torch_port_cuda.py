@@ -120,13 +120,18 @@ def test_scatter_kernel_matches_plain(cuda, d):
 def _kernels_of(fn):
     """The number of device activities (kernels, fills, copies) of one call.
     A profiler window in which CUPTI recorded no device activity at all (it
-    can drop a whole window when windows follow each other closely) is
-    taken again, up to three windows."""
+    can drop a whole window when windows follow each other closely; three in
+    a row were seen on an H100) is taken again after a pause, up to six
+    windows."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()

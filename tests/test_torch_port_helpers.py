@@ -10,6 +10,8 @@ otherwise make the decoder trivial. This file holds no tests.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -266,3 +268,43 @@ def check_step(port, state, metrics, jstate, jmetrics, before, frozen=(), lr=2e-
     assert len(exempt) <= 0.1 * len(rel), exempt
     for k, r in rel.items():
         assert r <= (MU_REL_SCALAR if port.get_parameter(k).numel() == 1 else MU_REL), (k, r)
+
+
+def write_dataset(root: Path, n: int, hw, seed: int, n_val: int = 0):
+    """PNG frames with shapes, YOLO labels (polygon rows and box rows, one
+    frame without labels), train.csv and val.csv: the last ``n_val`` frames
+    in val and the others in train, or (``n_val`` 0) all frames in both."""
+    import cv2
+
+    from dfine_tpu_torch.data.image_io import write_png
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    h, w = hw
+    names = []
+    for i in range(n):
+        img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        lines = []
+        for _ in range(0 if i == 1 else int(rng.integers(1, 6))):
+            cls = int(rng.integers(0, 3))
+            cx, cy = rng.uniform(0.2, 0.8, 2)
+            rx, ry = rng.uniform(0.05, 0.25, 2)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(3, 12))))
+            poly = np.stack([cx + rx * np.cos(ang), cy + ry * np.sin(ang)], 1).clip(0, 1)
+            pts = np.round(poly * (w, h)).astype(np.int32)
+            cv2.fillPoly(img, [pts], tuple(int(v) for v in rng.integers(80, 256, 3)))
+            if rng.uniform() < 0.3:
+                lo, hi = poly.min(0), poly.max(0)
+                lines.append(f"{cls} {(lo[0] + hi[0]) / 2:.6f} {(lo[1] + hi[1]) / 2:.6f} "
+                             f"{hi[0] - lo[0]:.6f} {hi[1] - lo[1]:.6f}")
+            else:
+                lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in poly.reshape(-1)))
+        names.append(f"f{i}.png")
+        write_png(root / "images" / names[-1], img)
+        (root / "labels" / f"f{i}.txt").write_text("\n".join(lines) + ("\n" if lines else ""))
+    splits = {"train": names[:n - n_val], "val": names[n - n_val:]} if n_val else \
+        {"train": names, "val": names}
+    for split, part in splits.items():
+        (root / f"{split}.csv").write_text("".join(f"{x}\n" for x in part))
+    return names
