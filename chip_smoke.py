@@ -14,8 +14,9 @@ Phases, each printed as one JSON line:
    shapes of D-FINE-m at 640 px (TF32 off), with its time, the plain
    version's, one PyTorch call's where one computes the same function, and
    the least time the card could take (bound); the deformable-attention
-   kernel also beside the time of a launch of it with no work, and on the
-   non-square levels of every rect bucket. The three
+   kernel also beside the time of a launch of it with no work, on the
+   non-square levels of every rect bucket and at apps.test_batching's
+   batch 32. The three
    row scatter-adds
    (the value gradient of the deformable attention: ``rows_scatter_add``,
    ``_mxu`` and ``_tiled``) run at the train step's shapes and at head dim
@@ -92,6 +93,29 @@ The trainer entry point:
     ``best`` against the trainer's own eval of the same input, and one
     sampling call of the trainer's eval and one scatter call of its step
     against their plain versions.
+
+The apps, on the trainer's experiment (``phase_apps``):
+
+19. apps: the val frames relabelled with ``best``'s own fp32 detections;
+    ``apps.export`` (the repo's formats: graph manifest and ``.pt2``);
+    ``python -m dfine_tpu_torch.apps.infer`` in a subprocess over the val
+    frames with the most detections (files written, polygon lines and
+    crops among them, 4 sampling launches a frame); ``apps.bench`` (eager, CUDA graph and
+    ``.pt2`` rows: eager and graph F1 equal, the ``.pt2``'s at least
+    APPS_EXPORT_F1_SHARE of eager's, latency a frame; beside them the F1 of
+    the deploy-fused model served eagerly); ``apps.check_errors``;
+    ``apps.quant`` with the config's ``int8_max_drop``, forced to revert
+    every kernel (it must end at ``count_int8 = (0, n)`` with the fp F1),
+    and with ``int8_max_drop=1`` (every kernel stays int8); ``Int8Model``
+    on that run's ``export_int8.npz`` against its eval (the same int8
+    modules, integers and scales, at least one of them, and the same F1);
+    ``apps.test_batching``'s sweep at batch 1-32 (img/s, ms an image, graph
+    pool bytes), with the first sampling call of each batch size held
+    against the plain version and the batch-32 graph's decode against the
+    same program run eagerly on the same batch; the etl tools
+    (split, coco_yolo both ways, mask_tools, preprocess) on a copy of the
+    dataset. Each app's launch counts are set to 0 before it and read
+    after; the phase's seconds are printed.
 
 The first line says which optional packages (PIL, matplotlib, yaml,
 imageio, torchvision) the card's Python imports. Then one
@@ -223,6 +247,17 @@ TRAINER_BATCH, TRAINER_EPOCHS = 8, 2
 # enough for the loader to run behind the steps: 32 steps an epoch
 TRAINER_REPEAT = 8
 SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
+# the apps on the trainer's run: val relabelled with best's own detections,
+# at most APPS_KEEP a frame; infer over the APPS_INFER_FRAMES val frames with
+# the most of them; test_batching's sweep over APPS_BATCH_IMAGES images a
+# batch size, up to APPS_MAX_BATCH. The .pt2 is the deploy-fused model in
+# bf16: its bench row must keep APPS_EXPORT_F1_SHARE of eager's F1 (the runs
+# on the mask-polygon labels read 0.95, 0.96 and 1.0 of it on an H100 80GB
+# HBM3 at 700 W), and bench's frames also go through TorchModel(deploy=True)
+# in bf16, the same fused model eagerly, whose F1 is printed beside it;
+# phase_export holds the .pt2 to the eager fused model within EXPORT_SCORE_ATOL
+APPS_KEEP, APPS_INFER_FRAMES, APPS_BATCH_IMAGES, APPS_MAX_BATCH = 20, 4, 128, 32
+APPS_EXPORT_F1_SHARE = 0.9
 # packages the port may use where present, never needs: the run reports which import
 OPTIONAL_PACKAGES = ("PIL", "matplotlib", "yaml", "imageio", "torchvision")
 
@@ -540,6 +575,17 @@ def phase_deform_fwd(res):
             max_err = max(max_err, err)
             if not err <= FWD_TOL:
                 raise AssertionError(f"deform fwd at levels {shapes} {dtype}: max err {err}")
+    # apps.test_batching's largest batch: B = 32, 300 queries, bf16 value
+    v, l, a = _deform_inputs(dev, APPS_MAX_BATCH, HEAD_DIM, M_SHAPES, M_POINTS, torch.bfloat16,
+                             seed=7, q=QUERIES)
+    err = (ms_deform_attn_fwd(v, M_SHAPES, l, a, M_POINTS)
+           - ms_deform_attn_fwd_plain(v, M_SHAPES, l, a, M_POINTS)).abs().max().item()
+    checks.append({"batch": APPS_MAX_BATCH, "queries": QUERIES, "value": "bfloat16",
+                   "max_abs_err": err})
+    max_err = max(max_err, err)
+    if not err <= FWD_TOL:
+        raise AssertionError(f"deform fwd at B={APPS_MAX_BATCH}: max err {err} > {FWD_TOL}")
+    del v, l, a
     v, l, a = _deform_inputs(dev, 1, HEAD_DIM, M_SHAPES, M_POINTS, torch.bfloat16, seed=3)
     far = torch.tensor([-0.6, 1.7, -1e9, 1e9], device=dev)
     l_far = far[torch.randint(0, 4, l.shape, device=dev)]
@@ -2277,10 +2323,10 @@ def captured_trainer_calls(trainer, calls: dict):
             calls["scatter"] = (idx.clone(), contrib.clone(), hw)
         return kernel(idx, contrib, hw)
 
-    def eval_decode(images):
+    def eval_decode(images, model=None):
         in_eval.append(True)
         try:
-            return decode(images)
+            return decode(images, model)
         finally:
             in_eval.pop()
 
@@ -2293,6 +2339,47 @@ def captured_trainer_calls(trainer, calls: dict):
         tda.ms_deform_attn_op = op
         tda.rows_scatter_add = tda._SCATTERS["pallas"] = kernel
         del trainer.decode
+
+
+@contextlib.contextmanager
+def captured_sweep(calls: dict):
+    """While ``apps.test_batching``'s sweep runs, keep in ``calls["deform"]``
+    copies of the inputs of the first sampling-kernel call of each batch size
+    made outside a graph capture (a graph's first warm-up call), keyed by
+    ``calls["key"]`` where set, else by the batch; and in ``calls["graph"]``
+    the APPS_MAX_BATCH graph's program, the batch of its first replay and
+    that replay's outputs. Every call still goes on to its kernel."""
+    import torch
+
+    from dfine_tpu_torch.apps import test_batching as batching_app
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    op, program = tda.ms_deform_attn_op, batching_app.GraphProgram
+    calls["deform"] = {}
+
+    def deform(value, flat, loc, att, pts):
+        key = calls.get("key", value.shape[0])
+        if not torch.cuda.is_current_stream_capturing() and key not in calls["deform"]:
+            calls["deform"][key] = (value.clone(), tuple(zip(flat[::2], flat[1::2])),
+                                    loc.clone(), att.clone(), tuple(pts))
+        return op(value, flat, loc, att, pts)
+
+    class Recorded(program):
+        def __init__(self, fn, shape, device, pool):
+            super().__init__(fn, shape, device, pool)
+            self.fn = fn
+
+        def __call__(self, images):
+            out = super().__call__(images)  # clones of the static outputs
+            if images.shape[0] == APPS_MAX_BATCH and "graph" not in calls:
+                calls["graph"] = (self.fn, images.clone(), out)
+            return out
+
+    tda.ms_deform_attn_op, batching_app.GraphProgram = deform, Recorded
+    try:
+        yield calls
+    finally:
+        tda.ms_deform_attn_op, batching_app.GraphProgram = op, program
 
 
 def _trainer_run(trainer) -> dict:
@@ -2501,9 +2588,358 @@ def phase_trainer(res):
                              for k in first["launches"]}
     del trainer, resumed, served
     torch.cuda.empty_cache()
-    tmp.cleanup()
+    # the apps phase runs on this experiment directory and dataset, then removes them
+    res["trainer_run"] = {"tmp": tmp, "root": root, "config": config, "overrides": overrides}
     if failures:
         raise AssertionError("trainer: " + "; ".join(failures))
+
+
+def relabel_val(trainer, keep: int):
+    """Write, as each val frame's labels, ``trainer``'s own detections of it
+    (its eval path, fp32) above the threshold that keeps at most ``keep`` in
+    every frame (a frame may keep none: its label file is empty), each as
+    the largest polygon of its own mask (its box where the mask has none),
+    so that the fp F1, which matches masks, is near 1 and int8 can lose
+    some of it. Returns the threshold and the rows written a frame."""
+    import torch
+
+    from dfine_tpu_torch.infer.contours import contour_area, mask2poly
+    from dfine_tpu_torch.postprocess import postprocess_predictions
+
+    ds = trainer.loader.dataset("val", mode="val")
+    decoded = []
+    for i in range(len(ds)):
+        sample, gt = ds.load_for_eval(i)
+        x = torch.from_numpy(sample["image"][None]).to(DEV).permute(0, 3, 1, 2)
+        decoded.append((trainer.decode(x), gt))
+    conf = max(float(d["scores"][0, keep]) for d, _ in decoded) + 1e-6  # scores descending
+    kept = []
+    for i, (dec, gt) in enumerate(decoded):
+        (pred,) = postprocess_predictions(dec, trainer.img_size, [gt["orig_size"]], conf, False)
+        h, w = gt["orig_size"]
+        rows = []
+        for (x1, y1, x2, y2), c, m in zip(pred["boxes"], pred["labels"], pred["masks"]):
+            polys = mask2poly(m)
+            poly = (max(polys, key=contour_area) if polys else
+                    np.asarray([(x1, y1), (x2, y1), (x2, y2), (x1, y2)], np.float32))
+            rows.append(f"{c} " + " ".join(f"{v:.6f}" for v in (poly / [w, h]).reshape(-1)))
+        with open(ds._paths(i)[1], "w") as f:
+            f.write("".join(r + "\n" for r in rows))
+        kept.append(len(rows))
+    if not sum(kept):
+        raise AssertionError(f"relabel: nothing above {conf} in any val frame")
+    return conf, kept
+
+
+@contextlib.contextmanager
+def counted(launches: dict, name: str):
+    """Every launch count set to 0 on entry; the counts on exit kept in
+    ``launches[name]``."""
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    try:
+        yield
+    finally:
+        sync()
+        launches[name] = launch_counts()
+
+
+def _want_deform(counts: dict, n: int, name: str) -> None:
+    """``counts`` holds n sampling launches and no scatter launch."""
+    want = {"ms_deform_attn_fwd": n, "rows_scatter_add": 0, "rows_scatter_add_mxu": 0,
+            "rows_scatter_add_tiled": 0}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+
+
+_INFER_RUN = r"""
+import json, runpy, sys
+from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+sys.argv = ["dfine_tpu_torch.apps.infer"] + sys.argv[1:]
+reset_launch_counts()
+runpy.run_module("dfine_tpu_torch.apps.infer", run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps(launch_counts()))
+"""
+
+
+def phase_apps(res):
+    """The apps a user runs after training (``python -m dfine_tpu_torch.apps.
+    <name>`` and ``etl.<name>``), each through its ``main`` on the trainer
+    phase's experiment directory and dataset (train.csv cut to each train
+    frame once), with the launch counts set to 0 before each and read after.
+    First the val frames are relabelled with ``best``'s own fp32 detections
+    (``relabel_val``) and ``train.conf_thresh`` set to that threshold."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from dfine_tpu_torch import Int8Model, TorchModel
+    from dfine_tpu_torch.apps import bench as bench_app
+    from dfine_tpu_torch.apps import check_errors as check_app
+    from dfine_tpu_torch.apps import export as export_app
+    from dfine_tpu_torch.apps import quant as quant_app
+    from dfine_tpu_torch.apps import test_batching as batching_app
+    from dfine_tpu_torch.apps.common import experiment_dir, label_names, serving_kwargs
+    from dfine_tpu_torch.config import cli_config, load_config
+    from dfine_tpu_torch.data.image_io import decoder_name, write_png
+    from dfine_tpu_torch.data.loader import Loader
+    from dfine_tpu_torch.data.labels import parse_yolo_label_file, polygons_to_masks
+    from dfine_tpu_torch.etl import coco_yolo, mask_tools, preprocess, split
+    from dfine_tpu_torch.infer.int8 import Int8Linear, count_int8
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+    from dfine_tpu_torch.train.trainer import Trainer
+
+    run = res.pop("trainer_run")
+    root, failures, launches, t_phase = run["root"], [], {}, time.perf_counter()
+    try:
+        ds = os.path.join(root, "data", "dataset")
+        with open(os.path.join(ds, "train.csv")) as f:
+            train_names = list(dict.fromkeys(f.read().split()))
+        with open(os.path.join(ds, "train.csv"), "w") as f:
+            f.write("".join(f"{n}\n" for n in train_names))
+        with open(os.path.join(ds, "val.csv")) as f:
+            val_names = f.read().split()
+        # fp32 evals: best's own fp32 detections label the val frames, so
+        # that quant's fp F1 is near 1
+        overrides = run["overrides"] + ["train.num_workers=4", "train.dtype=float32"]
+        tr = Trainer(load_config(run["config"], overrides), device=DEV)
+        tr.load_checkpoint("best")
+        conf, kept = relabel_val(tr, APPS_KEEP)
+        tr.conf_thresh = conf
+        # infer's source: the val frames with the most detections at conf
+        test_dir = os.path.join(root, "data", "test")
+        os.makedirs(test_dir)
+        for i in sorted(range(len(val_names)), key=lambda i: -kept[i])[:APPS_INFER_FRAMES]:
+            shutil.copy(os.path.join(ds, "images", val_names[i]), test_dir)
+        argv = [run["config"]] + overrides + [f"train.conf_thresh={conf}"]
+        run_dir = os.path.join(root, "run")
+        emit({"phase": "apps", "step": "relabel", "conf_thresh": conf, "keep": APPS_KEEP,
+              "labels_per_val_frame": kept, "train_frames": len(train_names)})
+
+        t0 = time.perf_counter()
+        with counted(launches, "export"):
+            artifacts = export_app.main(argv, device=DEV)
+        manifest = dict(line.split(": ", 1) for line in
+                        open(artifacts["aot"]).read().splitlines())
+        emit({"phase": "apps", "app": "export", "seconds": time.perf_counter() - t0,
+              "artifacts": {k: str(os.path.relpath(v, run_dir)) for k, v in artifacts.items()},
+              "pt2_mb": os.path.getsize(artifacts["exported"]) / 2**20, "aot_manifest": manifest,
+              "launches": launches["export"]})
+        if sorted(artifacts) != ["aot", "exported"] or manifest.get("deform_launches") != "4":
+            failures.append(f"export: {sorted(artifacts)}, manifest {manifest}")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _INFER_RUN] + argv, capture_output=True,
+                              text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        infer_s = time.perf_counter() - t0
+        out_dir = os.path.join(root, "output", "infer")
+        written = {d: sorted(os.listdir(os.path.join(out_dir, d))) if
+                   os.path.isdir(os.path.join(out_dir, d)) else []
+                   for d in ("images", "annotations", "crops")}
+        got = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+        launches["infer"] = json.loads(got[0][len("LAUNCHES "):]) if got else None
+        poly_lines = sum(open(os.path.join(out_dir, "annotations", a)).read().count("\n")
+                         for a in written["annotations"])  # one a contour of an instance
+        emit({"phase": "apps", "app": "infer", "subprocess": "python -m dfine_tpu_torch.apps.infer",
+              "returncode": proc.returncode, "seconds": infer_s,
+              "files": {k: len(v) for k, v in written.items()}, "polygon_lines": poly_lines,
+              "labels_txt": open(os.path.join(out_dir, "labels.txt")).read().split()
+              if proc.returncode == 0 else None,
+              "launches": launches["infer"], "frames": APPS_INFER_FRAMES,
+              "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
+        n = APPS_INFER_FRAMES
+        if (proc.returncode != 0 or len(written["images"]) != n or len(written["annotations"]) != n
+                or not poly_lines or not written["crops"] or launches["infer"] is None):
+            failures.append(f"infer: rc {proc.returncode}, files {written}")
+        else:  # the serving smoke check at load, then each frame
+            _want_deform(launches["infer"], DECODER_LAYERS * (n + 1), "infer")
+
+        t0 = time.perf_counter()
+        with counted(launches, "bench"):
+            rows = bench_app.main(argv, device=DEV)
+        bench_s = time.perf_counter() - t0
+        by = {r["backend"]: r for r in rows}
+        # the witness: the .pt2's model (deploy-fused, bf16) served eagerly
+        cfg = cli_config(argv)
+        with counted(launches, "bench_fused_eager"):
+            fused = bench_app.test_model(
+                TorchModel(cfg.model_name, str(experiment_dir(cfg) / "best.ckpt"), deploy=True,
+                           **serving_kwargs(cfg, DEV)),
+                Loader(Path(cfg.train.data_path), cfg.train, task=cfg.task).dataset(
+                    "val", mode="bench"), label_names(cfg), cfg.train.iou_thresh)
+        emit({"phase": "apps", "app": "bench", "seconds": bench_s, "rows": rows,
+              "launches": launches["bench"], "val_frames": len(val_names),
+              "export_f1_share_min": APPS_EXPORT_F1_SHARE,
+              "fused_eager_witness": fused, "fused_eager_launches": launches["bench_fused_eager"]})
+        nv = len(val_names)
+        # eager and .pt2: 4 a call (the smoke check at load, then each frame);
+        # the CUDA graph: 4 in each of its 2 warm-up calls and its capture (a
+        # replay runs them on the card without the wrapper)
+        _want_deform(launches["bench"], DECODER_LAYERS * (2 * (nv + 1) + 3), "bench")
+        _want_deform(launches["bench_fused_eager"], DECODER_LAYERS * (nv + 1), "bench witness")
+        metrics = ("f1", "precision", "recall", "iou")
+        if (list(by) != ["torch-eager", "torch-cuda-graph", "torch-export"]
+                or any(by["torch-eager"][k] != by["torch-cuda-graph"][k] for k in metrics)
+                or by["torch-export"]["f1"] < APPS_EXPORT_F1_SHARE * by["torch-eager"]["f1"]):
+            failures.append(f"bench: {rows}")
+
+        t0 = time.perf_counter()
+        with counted(launches, "check_errors"):
+            errors = check_app.main(argv, device=DEV)
+        crops = sum(len(files) for _, _, files in
+                    os.walk(os.path.join(root, "output", "check_errors")))
+        emit({"phase": "apps", "app": "check_errors", "seconds": time.perf_counter() - t0,
+              "counts": errors, "crops": crops, "launches": launches["check_errors"]})
+        _want_deform(launches["check_errors"],
+                     DECODER_LAYERS * (1 + len(train_names) + len(val_names)), "check_errors")
+        if crops != sum(c["fp"] + c["fn"] for c in errors.values()):
+            failures.append(f"check_errors: {crops} crops for {errors}")
+
+        quants = {}
+        for name, extra in (("config_max_drop", []),
+                            ("forced_full_revert", ["export.int8_max_drop=-1"]),
+                            ("all_int8", ["export.int8_max_drop=1"])):
+            t0 = time.perf_counter()
+            with counted(launches, f"quant_{name}"):
+                out = quant_app.main(argv + extra, device=DEV)
+            quants[name] = out
+            evals = 2 + len(out["rounds"])
+            emit({"phase": "apps", "app": "quant", "run": name, "overrides": extra,
+                  "seconds": time.perf_counter() - t0,
+                  **{k: out[k] for k in ("fp_f1", "int8_f1", "drop", "accepted", "count_int8",
+                                         "rounds")},
+                  "reverted": len(out["reverted"]), "first_reverted": out["reverted"][:5],
+                  "artifact_written": "path" in out,
+                  "evals": evals, "launches": launches[f"quant_{name}"]})
+            _want_deform(launches[f"quant_{name}"],
+                         DECODER_LAYERS * evals * -(-len(val_names) // TRAINER_BATCH),
+                         f"quant {name}")
+        forced, gated, whole = (quants[k] for k in ("forced_full_revert", "config_max_drop",
+                                                    "all_int8"))
+        # an artifact is written on accept unless every kernel was reverted
+        if (forced["count_int8"][0] != 0 or forced["int8_f1"] != forced["fp_f1"]
+                or not gated["accepted"] or ("path" in gated) != (gated["count_int8"][0] > 0)
+                or not whole["accepted"] or whole["reverted"] or "path" not in whole):
+            failures.append(f"quant: forced {forced['count_int8']} F1 {forced['int8_f1']} vs "
+                            f"{forced['fp_f1']}; gated accepted {gated['accepted']} "
+                            f"{gated['count_int8']}; all int8 {whole['count_int8']}")
+
+        # Int8Model serving the all-int8 run's export_int8.npz: the modules
+        # that run evaluated, integers and scales, and its F1 through the
+        # same eval
+        t0 = time.perf_counter()
+        with counted(launches, "int8_model"):
+            served = Int8Model(SIZE, str(whole["path"]), TRAINER_CLASSES, IMG, IMG,
+                               conf_thresh=conf, half=False, enable_mask_head=True, device=DEV)
+            f1 = tr.evaluate("val", model=served.model)["f1"]
+        last = {n: m for n, m in whole["model"].named_modules() if isinstance(m, Int8Linear)}
+        ours = {n: m for n, m in served.model.named_modules() if isinstance(m, Int8Linear)}
+        same = last.keys() == ours.keys() and all(
+            torch.equal(a, b) for n in last
+            for a, b in zip(last[n].int8_weight(), ours[n].int8_weight()))
+        served_count = count_int8(served.model)
+        emit({"phase": "apps", "app": "Int8Model", "seconds": time.perf_counter() - t0,
+              "npz_mb": os.path.getsize(whole["path"]) / 2**20,
+              "count_int8": served_count, "quant_count_int8": whole["count_int8"],
+              "same_int8_modules": same, "f1": f1, "quant_f1": whole["int8_f1"],
+              "launches": launches["int8_model"]})
+        # the smoke check at load, then one eval batch
+        _want_deform(launches["int8_model"], DECODER_LAYERS * (1 + -(-len(val_names) //
+                                                                     TRAINER_BATCH)), "Int8Model")
+        if (not same or not served_count[0] or served_count != tuple(whole["count_int8"])
+                or f1 != whole["int8_f1"]):
+            failures.append(f"Int8Model: {served_count} int8, same modules {same}, "
+                            f"F1 {f1} vs {whole['int8_f1']}")
+        del served, last, ours, tr
+        for out in quants.values():
+            del out["model"]
+
+        t0 = time.perf_counter()
+        sweep_calls: dict = {}
+        with captured_sweep(sweep_calls):
+            with counted(launches, "test_batching"):
+                batch_rows = batching_app.sweep(SIZE, TRAINER_CLASSES, (IMG, IMG),
+                                                APPS_BATCH_IMAGES, batching_app.BATCH_SIZES, DEV)
+            sweep_s = time.perf_counter() - t0
+            # the largest batch's graph against its program run eagerly on
+            # the batch of its first replay (whose first sampling call is kept too)
+            program, images, graph_out = sweep_calls.pop("graph")
+            sweep_calls["key"] = f"eager_{APPS_MAX_BATCH}"
+            with torch.inference_mode():
+                eager_out = program(images)
+        graph_vs_eager = {k: float((graph_out[k].float() - eager_out[k].float()).abs().max())
+                          for k in graph_out}
+        deform_vs_plain = {}
+        with torch.inference_mode():
+            for key, (v, shapes, loc, att, pts) in sweep_calls["deform"].items():
+                deform_vs_plain[str(key)] = (ms_deform_attn_fwd(v, shapes, loc, att, pts)
+                                             - ms_deform_attn_fwd_plain(v, shapes, loc, att, pts)
+                                             ).abs().max().item()
+        del program, images, graph_out, eager_out, sweep_calls
+        best = max(batch_rows, key=lambda r: r["throughput_img_s"])
+        emit({"phase": "apps", "app": "test_batching", "seconds": sweep_s,
+              "n_images": APPS_BATCH_IMAGES, "rows": batch_rows, "optimum": best["batch_size"],
+              "launches": launches["test_batching"],
+              f"graph_{APPS_MAX_BATCH}_vs_eager_max_abs": graph_vs_eager,
+              "first_deform_call_vs_plain_max_abs": deform_vs_plain})
+        # each batch size's graph: 4 in each warm-up call and in its capture
+        _want_deform(launches["test_batching"],
+                     3 * DECODER_LAYERS * len(batching_app.BATCH_SIZES), "test_batching")
+        want_keys = {str(b) for b in batching_app.BATCH_SIZES} | {f"eager_{APPS_MAX_BATCH}"}
+        if (set(deform_vs_plain) != want_keys or max(deform_vs_plain.values()) > FWD_TOL
+                or max(graph_vs_eager.values()) > GRAPH_ATOL):
+            failures.append(f"test_batching: sampling calls vs plain {deform_vs_plain} "
+                            f"(atol {FWD_TOL}), graph vs eager {graph_vs_eager} "
+                            f"(atol {GRAPH_ATOL})")
+        torch.cuda.empty_cache()
+
+        # the etl tools on a copy of the dataset (the card's Python has no cv2)
+        t0 = time.perf_counter()
+        copy_root = os.path.join(root, "etl")
+        etl_ds = os.path.join(copy_root, "data", "dataset")
+        shutil.copytree(ds, etl_ds)
+        etl_argv = [run["config"], f"train.root={copy_root}", "train.num_workers=4",
+                    f"train.label_to_name={{0: ellipse, 1: polygon, 2: blob}}",
+                    "task=segment"]
+        splits = split.main(etl_argv)
+        coco_yolo.main(["yolo2coco"] + etl_argv)
+        with open(os.path.join(etl_ds, "coco.json")) as f:
+            coco = json.load(f)
+        back = os.path.join(copy_root, "labels_back")
+        coco_yolo.main(["coco2yolo", os.path.join(etl_ds, "coco.json"), back, "--segment"])
+        masks_dir = os.path.join(copy_root, "masks")
+        os.makedirs(masks_dir)
+        for name in val_names:
+            stem = os.path.splitext(name)[0]
+            _, _, polys = parse_yolo_label_file(os.path.join(ds, "labels", stem + ".txt"), True)
+            m = polygons_to_masks([p * (TRAINER_HW[1], TRAINER_HW[0]) for p in polys], *TRAINER_HW)
+            union = m.max(0) if len(m) else np.zeros(TRAINER_HW, np.uint8)  # a frame without labels
+            write_png(os.path.join(masks_dir, stem + ".png"), union * 255)
+        mask_tools.main(["png_mask_to_yolo", masks_dir, os.path.join(copy_root, "mask_labels")])
+        mask_rows = sum(open(os.path.join(copy_root, "mask_labels", f)).read().count("\n")
+                        for f in os.listdir(os.path.join(copy_root, "mask_labels")))
+        dups = mask_tools.remove_dups(os.path.join(etl_ds, "images"), dry_run=True)
+        errors = preprocess.main(etl_argv)
+        jpgs = [f for f in os.listdir(os.path.join(etl_ds, "images")) if f.endswith(".jpg")]
+        emit({"phase": "apps", "tools": "etl", "seconds": time.perf_counter() - t0,
+              "split": {k: len(v) for k, v in splits.items()},
+              "coco": {"images": len(coco["images"]), "annotations": len(coco["annotations"])},
+              "coco2yolo_files": len(os.listdir(back)), "png_mask_rows": mask_rows,
+              "duplicates_found": len(dups), "preprocess_errors": errors, "jpgs": len(jpgs),
+              "image_decoder": decoder_name()})
+        n_frames = TRAINER_FRAMES
+        if (sum(len(v) for v in splits.values()) != n_frames or len(coco["images"]) != n_frames
+                or not mask_rows or errors or len(jpgs) != n_frames):
+            failures.append("etl: see its line")
+    finally:
+        run["tmp"].cleanup()
+    res["apps_counts"] = launches
+    res["apps_seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "apps", "seconds": res["apps_seconds"]})
+    if failures:
+        raise AssertionError("apps: " + "; ".join(failures))
 
 
 def in_situ_ms(res, kernel: str):
@@ -2544,7 +2980,8 @@ def kernel_line(res):
          "serving_modes_launches": {**res["serving_modes_counts"], "frames": MODE_FRAMES},
          "deploy_launches": res["deploy_counts"], "int8_launches": res["int8_counts"],
          "aot_graph_launches_per_frame_profiled": res["aot_counts"],
-         "export_launches": {"fresh_process": res["export_counts"], "frames": 4}},
+         "export_launches": {"fresh_process": res["export_counts"], "frames": 4},
+         "apps_launches": {app: c["ms_deform_attn_fwd"] for app, c in res["apps_counts"].items()}},
     ] + [
         {"name": name, "route": "cuda", "source": "dfine_tpu_torch/csrc/rows_scatter_add_tile.cu",
          "replaces": f"dfine_tpu/ops/pallas/scatter_rows.py:{line}",
@@ -2552,6 +2989,7 @@ def kernel_line(res):
          "train_seg_launches": res["train_seg_counts"][name],
          "train_l_launches": res["train_l_counts"][name],
          "trainer_launches": res["trainer_counts"][name],
+         "apps_launches": sum(c[name] for c in res["apps_counts"].values()),
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
          "library_ms": res[name]["library_ms"], "path": path,
@@ -2595,7 +3033,7 @@ def main() -> int:
                phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,
                phase_train_l_frozen, phase_serving_modes, phase_deploy, phase_int8,
-               phase_aot_graph, phase_export, phase_trainer):
+               phase_aot_graph, phase_export, phase_trainer, phase_apps):
         t0 = time.perf_counter()
         try:
             fn(res)

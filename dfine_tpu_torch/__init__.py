@@ -6,7 +6,9 @@ standard library only. Its entry points run on the card unless the caller
 passes ``device="cpu"``; hand-written CUDA kernels live in ``csrc/`` and
 are built at first use (``ops/kernels``). ``infer/`` holds the serving
 backends (eager, int8, CUDA-graph and exported), ``export.py`` the export
-formats, ``train/`` the train step. Importing the package registers the
+formats, ``train/`` the train step and the trainer, ``apps/`` and ``etl/``
+the command-line apps and dataset tools (``python -m
+dfine_tpu_torch.apps.<name>``). Importing the package registers the
 custom op ``dfine_tpu_torch::ms_deform_attn_fwd`` that exported programs
 call.
 """

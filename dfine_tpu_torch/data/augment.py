@@ -30,6 +30,8 @@ against cv2):
   2^14) >> 15``, OpenCV 5.0's weights (bit-equal on all 2^24 colours; the
   14-bit ``4899/9617/1868`` of older OpenCV differ on 0.25 % of them).
 - ``rotation_matrix`` (``cv2.getRotationMatrix2D``): the closed form.
+- ``resize_area`` (``cv2.resize``, ``INTER_AREA``, shrinking): block sums
+  at integer factors, float32 area weights otherwise. Bit-equal.
 """
 
 from __future__ import annotations
@@ -76,6 +78,74 @@ def resize_linear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
     out = ((((rows[y0] >> 4) * b0[:, None, None]) >> 16)
            + (((rows[y1] >> 4) * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape((oh, ow) + img.shape[2:])
+
+
+def _area_tab(src: int, dst: int, scale: float):
+    """``computeResizeAreaTab``: for each destination index, the source
+    indices it covers and their float32 weights, in source order, as
+    [dst, slots] arrays (index, weight; weight 0 in unused slots)."""
+    rows = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(math.floor(f2), src - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        rows.append(row)
+    slots = max(len(r) for r in rows)
+    idx = np.zeros((dst, slots), np.int64)
+    wt = np.zeros((dst, slots), np.float32)
+    for d, row in enumerate(rows):
+        for k, (s, a) in enumerate(row):
+            idx[d, k], wt[d, k] = s, a
+    return idx, wt
+
+
+def resize_area(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_AREA)`` on uint8
+    [H, W] or [H, W, C], shrinking in both directions, as OpenCV 5.0
+    computes it:
+
+    - integer factors (``resizeAreaFast``): each output the sum of its
+      source block; 2x2 blocks (1, 3 or 4 channels) ``(sum + 2) >> 2``, any
+      other block ``sum * float32(1 / area)`` rounded half to even;
+    - other factors (``resizeArea_``): float32 weights per source column
+      and row (a partly covered cell weighs its covered share over the cell
+      width), a horizontal pass per source row and a vertical one, each
+      summing its terms in source order in float32, then rounded half to
+      even."""
+    ow, oh = size_wh
+    h, w = img.shape[:2]
+    if ow > w or oh > h or ow < 1 or oh < 1:
+        raise ValueError(f"resize_area shrinks only: {w}x{h} -> {ow}x{oh}")
+    src = img.reshape(h, w, -1)
+    sx, sy = 1.0 / (ow / w), 1.0 / (oh / h)  # cv::resize's scale_x, scale_y
+    ix, iy = round(sx), round(sy)
+    if abs(sx - ix) < 2.220446049250313e-16 and abs(sy - iy) < 2.220446049250313e-16:
+        blocks = src[: oh * iy, : ow * ix].astype(np.int64).reshape(oh, iy, ow, ix, -1)
+        total = blocks.sum((1, 3))
+        if ix == iy == 2 and src.shape[2] in (1, 3, 4):
+            out = (total + 2) >> 2
+        else:
+            out = np.rint(total.astype(np.float32) * np.float32(1.0 / (ix * iy)))
+    else:
+        xi, xw = _area_tab(w, ow, sx)
+        yi, yw = _area_tab(h, oh, sy)
+        srcf = src.astype(np.float32)
+        rows = np.zeros((h, ow, src.shape[2]), np.float32)
+        for k in range(xi.shape[1]):  # the horizontal pass, term by term
+            rows = rows + srcf[:, xi[:, k]] * xw[:, k, None]
+        acc = np.zeros((oh, ow, src.shape[2]), np.float32)
+        for k in range(yi.shape[1]):  # the vertical pass, term by term
+            acc = acc + yw[:, k, None, None] * rows[yi[:, k]]
+        out = np.rint(acc)
     return np.clip(out, 0, 255).astype(np.uint8).reshape((oh, ow) + img.shape[2:])
 
 

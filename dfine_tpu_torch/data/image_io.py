@@ -11,6 +11,16 @@ returned that is not the file's own pixels.
 
 ``write_png(path, rgb)`` writes an 8-bit RGB (or gray) PNG with filter 0.
 
+The ``cv2.imread`` / ``cv2.imwrite`` counterparts of the apps and the etl
+tools: ``read_bgr`` (BGR, ``None`` where cv2 returns ``None``: a missing or
+undecodable file), ``read_gray`` (``IMREAD_GRAYSCALE``: a gray file's own
+values; colour reduced as cv2's decoders reduce it: libjpeg's luminance for
+JPEG, libpng's truncating 15-bit weights 9797/19234/3737 for PNG, OpenCV's
+14-bit 4899/9617/1868 for BMP, ``cvtColor``'s weights otherwise),
+``write_image`` (PNG by ``write_png``, anything else through PIL, JPEG at
+cv2's quality 95) and ``image_size`` (the header only). With PIL the EXIF
+orientation is applied, as ``cv2.imread`` applies it.
+
 PNG rows decode with numpy: None, Sub (a cumulative sum per channel) and Up
 (a sum with the row above) row by row; images with Average or Paeth rows,
 whose bytes depend on their left neighbour through a rounding, along
@@ -61,24 +71,121 @@ def _to_rgb(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3], dtype=np.uint8)
 
 
+def _decode(path: Path) -> np.ndarray:
+    """[H, W, C] uint8 in the file's own channels (C 1 gray, 2 gray+alpha,
+    3 RGB, 4 RGBA; other PIL modes as RGB)."""
+    if path.suffix.lower() == ".npy":
+        return np.load(path)
+    if _pil() is not None:
+        from PIL import ImageOps
+
+        with _pil().open(path) as raw:
+            im = ImageOps.exif_transpose(raw)  # a loaded copy, turned as cv2 turns it
+        if im.mode not in ("L", "LA", "RGB", "RGBA"):
+            im = im.convert("RGB")
+        return np.array(im, np.uint8)
+    head = path.read_bytes()[:8]
+    if head == _PNG_SIG:
+        return read_png(path)
+    if head[:2] in (b"P5", b"P6"):
+        return read_pnm(path)
+    raise RuntimeError(f"cannot decode {path} without PIL: the built-in reader takes PNG, "
+                       "PPM/PGM and .npy; install PIL (Pillow) for JPEG and other formats")
+
+
 def read_image(path) -> np.ndarray:
     """RGB uint8 [H, W, 3] of the image at ``path`` (see the module doc)."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(path)
-    if path.suffix.lower() == ".npy":
-        return _to_rgb(np.load(path))
+    return _to_rgb(_decode(path))
+
+
+def _decoded_or_none(path: Path):
+    """``_decode``, or None for a missing or undecodable file (cv2.imread's
+    None). A format that needs PIL where PIL is missing still raises."""
+    if not path.is_file():
+        return None
+    try:
+        return _decode(path)
+    except (OSError, ValueError, EOFError):  # PIL's UnidentifiedImageError is an OSError
+        return None
+
+
+def read_bgr(path):
+    """``cv2.imread(path)``: BGR uint8 [H, W, 3], or None."""
+    img = _decoded_or_none(Path(path))
+    return None if img is None else np.ascontiguousarray(_to_rgb(img)[..., ::-1])
+
+
+def read_gray(path):
+    """``cv2.imread(path, IMREAD_GRAYSCALE)``: uint8 [H, W], or None (the
+    colour rules are in the module doc)."""
+    path = Path(path)
+    if _pil() is not None and path.is_file() and path.suffix.lower() in (".jpg", ".jpeg"):
+        from PIL import ImageOps
+
+        try:  # libjpeg decodes the luminance alone, as it does for cv2
+            with _pil().open(path) as im:
+                im.draft("L", im.size)
+                im.load()
+                return np.asarray(ImageOps.exif_transpose(im).convert("L"), np.uint8)
+        except (OSError, ValueError, EOFError):
+            return None
+    img = _decoded_or_none(path)
+    if img is None:
+        return None
+    if img.ndim == 2 or img.shape[2] in (1, 2):
+        return np.ascontiguousarray(img.reshape(*img.shape[:2], -1)[..., 0])
+    r, g, b = (img[..., i].astype(np.int32) for i in range(3))
+    suffix = path.suffix.lower()
+    if suffix == ".png":  # libpng's png_set_rgb_to_gray(0.299, 0.587)
+        return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+    if suffix == ".bmp":  # OpenCV's own BMP decoder: 14-bit weights, rounded
+        return ((4899 * r + 9617 * g + 1868 * b + (1 << 13)) >> 14).astype(np.uint8)
+    return ((9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def write_image(path, img_bgr: np.ndarray) -> None:
+    """``cv2.imwrite(path, img_bgr)`` (BGR [H, W, 3] or gray [H, W] uint8):
+    PNG by ``write_png``; any other format through PIL (JPEG at quality 95,
+    cv2's default), raising and naming PIL where it does not import."""
+    path = Path(path)
+    img = np.ascontiguousarray(img_bgr[..., ::-1] if img_bgr.ndim == 3 else img_bgr, np.uint8)
+    if path.suffix.lower() == ".png":
+        write_png(path, img)
+        return
     pil = _pil()
-    if pil is not None:
-        with pil.open(path) as im:
-            return np.asarray(im.convert("RGB"), np.uint8).copy()
-    head = path.read_bytes()[:8]
-    if head == _PNG_SIG:
-        return _to_rgb(read_png(path))
+    if pil is None:
+        raise RuntimeError(f"cannot write {path} without PIL: the built-in writer takes PNG "
+                           "only; install PIL (Pillow) for JPEG and other formats")
+    kw = {"quality": 95} if path.suffix.lower() in (".jpg", ".jpeg") else {}
+    pil.fromarray(img).save(path, **kw)
+
+
+def image_size(path):
+    """(height, width) of the image at ``path`` from its header, without
+    decoding the pixels; None where it is missing or not an image."""
+    path = Path(path)
+    if not path.is_file():
+        return None
+    if _pil() is not None:
+        try:
+            with _pil().open(path) as im:  # reads the header only
+                w, h = im.size
+                if im.getexif().get(0x0112, 1) in (5, 6, 7, 8):  # turned by 90 degrees
+                    w, h = h, w
+                return h, w
+        except (OSError, ValueError, EOFError):
+            return None
+    head = path.read_bytes()[:32]
+    if head[:8] == _PNG_SIG:
+        w, h = struct.unpack(">II", head[16:24])
+        return h, w
     if head[:2] in (b"P5", b"P6"):
-        return _to_rgb(read_pnm(path))
-    raise RuntimeError(f"cannot decode {path} without PIL: the built-in reader takes PNG, "
-                       "PPM/PGM and .npy; install PIL (Pillow) for JPEG and other formats")
+        return read_pnm(path).shape[:2]
+    raise RuntimeError(f"cannot read the size of {path} without PIL: the built-in reader "
+                       "takes PNG and PPM/PGM; install PIL (Pillow) for JPEG and other formats")
 
 
 # ---------------------------------------------------------------- PNG --

@@ -12,7 +12,9 @@ classes, which resize uint8 frames with cv2 on the host, the port ships the
 uint8 frame to the card and resizes floats there (as ``bench.py`` does).
 
 Weights: ``None`` (``build_model``'s seeded random weights), an ``.npz`` of
-JAX variables (``dfine_tpu.utils.checkpoint.save_params_npz``'s layout), a
+JAX variables (``dfine_tpu.utils.checkpoint.save_params_npz``'s layout; an
+int8 one, ``apps.quant``'s ``export_int8.npz``, gives ``Int8Linear``
+modules for its quantized kernels: ``infer/int8.py``), a
 reference ``.pth`` / ``.pt``, or a ``.ckpt`` trainer checkpoint of the
 port's ``Trainer``, served with its EMA weights (its model's weights where
 it trained without EMA). A directory, the JAX trainer's orbax state,
@@ -34,6 +36,7 @@ from ..postprocess import postprocess_predictions
 from ..utils.checkpoint import (load_jax_variables, load_torch_checkpoint, read_state,
                                 unflatten)
 from .contours import mask2poly
+from .int8 import load_int8_variables
 
 
 # canonical source aspect ratios covering common camera/video geometries;
@@ -63,7 +66,10 @@ def load_weights(model: torch.nn.Module, model_path: Optional[str]) -> torch.nn.
         return model
     if p.suffix == ".npz":
         with np.load(p) as z:
-            return load_jax_variables(model, unflatten({k: z[k] for k in z.files}))
+            flat = {k: z[k] for k in z.files}
+        if any(k.startswith("quant/") for k in flat):  # apps.quant's export_int8.npz
+            return load_int8_variables(model, flat)
+        return load_jax_variables(model, unflatten(flat))
     if p.suffix in (".pth", ".pt"):
         return load_torch_checkpoint(model, p)
     raise ValueError(f"unsupported weights file {p} (expected .npz, .pth, .pt or .ckpt)")

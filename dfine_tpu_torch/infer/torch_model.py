@@ -14,7 +14,7 @@ from ..ops.kernels import check_kernel_limits
 from ..postprocess import topk_decode
 from .base import BaseServing, load_weights
 from .fuse import convert_to_deploy
-from .int8 import convert_int8
+from .int8 import convert_int8, count_int8
 
 TOP_MASKS = 100  # masks kept for the strongest queries, in bf16 (jax_model.py:28-29)
 
@@ -68,7 +68,10 @@ class TorchModel(BaseServing):
 class Int8Model(TorchModel):
     """INT8 serving: the weights of every linear layer and in-projection in
     int8, computed per ``infer.int8.set_int8_mode`` (``w8a8`` or
-    ``w8a16``); the convolutions in the compute dtype."""
+    ``w8a16``); the convolutions in the compute dtype. An int8 artifact
+    (``apps.quant``'s ``export_int8.npz``) is served as it is, its reverted
+    kernels in fp, as JAX's ``convert_params_int8`` leaves a converted tree."""
 
     def _convert(self, model: DFINE) -> DFINE:
-        return convert_int8(super()._convert(model))
+        model = super()._convert(model)
+        return model if count_int8(model)[0] else convert_int8(model)

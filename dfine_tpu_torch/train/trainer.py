@@ -162,19 +162,25 @@ class Trainer:
         return (self.state.ema if self.use_ema else self.state.model).eval()
 
     @torch.no_grad()
-    def decode(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def decode(self, images: torch.Tensor,
+               model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
         """images [B, 3, H, W] on the device (uint8 or float) -> top-300
-        decode, the top 100 masks in bf16, under the step's autocast."""
+        decode, the top 100 masks in bf16, under the step's autocast; by
+        ``model`` where given (``apps.quant``'s int8 models), else by
+        ``eval_model()``."""
         with torch.autocast(self.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
-            return decode(self.eval_model(), images, NUM_TOP_QUERIES)
+            return decode(model if model is not None else self.eval_model(), images,
+                          NUM_TOP_QUERIES)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def evaluate(self, split: str = "val", extended: bool = False,
-                 save_previews: bool = False) -> Dict:
+                 save_previews: bool = False,
+                 model: Optional[torch.nn.Module] = None) -> Dict:
+        """Metrics of ``model`` (default: ``eval_model()``) on ``split``."""
         # one dataset per split, so that its RAM cache lives across evals
         if split not in self._eval_ds:
             self._eval_ds[split] = self.loader.dataset(split, mode="val")
@@ -205,7 +211,7 @@ class Trainer:
                     self.logger.info(f"eval[{split}] batch {bi}/{(n + bs - 1) // bs}")
                 t1 = time.perf_counter()
                 x = images.to(self.device).permute(0, 3, 1, 2)
-                decoded = self.decode(x)
+                decoded = self.decode(x, model)
                 self._sync()
                 t2 = time.perf_counter()
                 preds = postprocess_predictions(decoded, self.img_size,

@@ -159,13 +159,15 @@ def port_to_jax(v: np.ndarray, transform: Optional[str], conv_transpose: bool) -
 
 
 @torch.no_grad()
-def port_variables(model: nn.Module) -> Dict[str, np.ndarray]:
+def port_variables(model: nn.Module, skip: Tuple[str, ...] = ()) -> Dict[str, np.ndarray]:
     """The port model's weights as flat JAX variables {"params/...",
     "batch_stats/..."} (fp32 numpy), the layout of
-    ``dfine_tpu.utils.checkpoint.save_params_npz``."""
+    ``dfine_tpu.utils.checkpoint.save_params_npz``; the tensors of the
+    modules at the paths in ``skip`` left out (``infer.int8`` writes its
+    int8 modules itself)."""
     flat = {}
     for key, tensor in model.state_dict().items():
-        if key.endswith("num_batches_tracked"):
+        if key.endswith("num_batches_tracked") or key.rsplit(".", 1)[0] in skip:
             continue
         fkey, transform = flax_key(key, tensor.dim())
         module = model.get_submodule(key.rsplit(".", 1)[0])

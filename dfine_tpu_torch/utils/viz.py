@@ -1,7 +1,8 @@
-"""Box and mask overlays in numpy for eval previews and debug dumps (port of
-``dfine_tpu/utils/viz.py``, without cv2): rectangles, polylines and masks
-are drawn, written as PNG by ``data.image_io.write_png``. The JAX package's
-text labels (cv2's Hershey font) are left out."""
+"""Box and mask overlays in numpy for eval previews, debug dumps and the
+apps' outputs (port of ``dfine_tpu/utils/viz.py``, without cv2):
+rectangles, polylines and masks are drawn; previews are written as PNG by
+``data.image_io.write_png``. The JAX package's text labels (cv2's Hershey
+font) are left out."""
 
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ _PALETTE = [
 
 
 def color_for(cls: int):
-    """The RGB colour of class ``cls`` (the JAX package's BGR colour)."""
-    return _PALETTE[int(cls) % len(_PALETTE)][::-1]
+    """The BGR colour of class ``cls``, the JAX package's."""
+    return _PALETTE[int(cls) % len(_PALETTE)]
 
 
 def draw_rectangle(img: np.ndarray, xyxy, color, thickness: int = 2) -> None:
@@ -53,14 +54,18 @@ def draw_polyline(img: np.ndarray, pts: np.ndarray, color, closed: bool = True) 
 
 
 def draw_detections(
-    image_rgb: np.ndarray,
+    image_bgr: np.ndarray,
     boxes_xyxy: np.ndarray,
     labels: np.ndarray,
+    scores: Optional[np.ndarray] = None,
     masks: Optional[np.ndarray] = None,
+    label_to_name: Optional[Dict[int, str]] = None,
     thickness: int = 2,
 ) -> np.ndarray:
-    """Masks blended half and half with their class colour, then boxes."""
-    img = image_rgb.copy()
+    """The JAX signature: masks blended half and half with their class
+    colour, then boxes, on a copy of the BGR image. ``scores`` and
+    ``label_to_name`` give the JAX package's text, which is not drawn."""
+    img = image_bgr.copy()
     if masks is not None:
         for i, m in enumerate(masks):
             mm = np.asarray(m).astype(bool)
@@ -91,8 +96,10 @@ def save_eval_previews(
     is kept for the JAX signature (no text is drawn)."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    left = draw_detections(image_rgb, gt["boxes"], gt["labels"], _masks_of(gt))
-    right = draw_detections(image_rgb, pred["boxes"], pred["labels"], _masks_of(pred))
+    bgr = image_rgb[..., ::-1]
+    left = draw_detections(bgr, gt["boxes"], gt["labels"], masks=_masks_of(gt))
+    right = draw_detections(bgr, pred["boxes"], pred["labels"], pred.get("scores"),
+                            _masks_of(pred), label_to_name)
     path = out_dir / f"{name}.png"
-    write_png(path, np.concatenate([left, right], axis=1))
+    write_png(path, np.concatenate([left, right], axis=1)[..., ::-1])
     return path

@@ -94,18 +94,24 @@ def test_upconv_mapping_matches_flax_conv_transpose():
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "yaml", "dfine_tpu")
 # imported lazily, inside the one function that uses each, never by an import
-LAZY = ("PIL", "matplotlib")
+LAZY = ("PIL", "matplotlib", "gradio")
+# every command-line entry point of the port (python -m dfine_tpu_torch.<name>)
+ENTRY_POINTS = tuple(f"dfine_tpu_torch.{m}" for m in (
+    "apps.train", "apps.export", "apps.infer", "apps.bench", "apps.check_errors", "apps.quant",
+    "apps.test_batching", "apps.demo", "etl.split", "etl.coco_yolo", "etl.mask_tools",
+    "etl.preprocess"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (``apps.train`` included) loads
-    nothing of FORBIDDEN and nothing of LAZY."""
+    """Importing every module of the port (every entry point of
+    ENTRY_POINTS included) loads nothing of FORBIDDEN and nothing of LAZY."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dfine_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dfine_tpu_torch.__path__, "
         "'dfine_tpu_torch.')]\n"
-        "assert 'dfine_tpu_torch.apps.train' in names, names\n"
+        f"missing = set({ENTRY_POINTS!r}) - set(names)\n"
+        "assert not missing, missing\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + LAZY!r})\n"
@@ -126,7 +132,10 @@ def _imported_roots(path: Path):
 
 
 def test_port_sources_name_no_forbidden_import():
-    files = sorted((REPO / "dfine_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "dfine_tpu_torch").rglob("*.py"))
+    assert {".".join(f.relative_to(REPO).with_suffix("").parts) for f in files} >= \
+        set(ENTRY_POINTS)
+    files.append(REPO / "chip_smoke.py")
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
