@@ -94,9 +94,28 @@ The trainer entry point:
     sampling call of the trainer's eval and one scatter call of its step
     against their plain versions.
 
+Data parallelism (``phase_dp``; two ranks on one card measure no scaling):
+
+19. dp: (a) the m det+seg DP step (bf16, batch 8, SyncBN forced) in a
+    one-rank NCCL group against the plain step on the same weights, batch
+    and CDN noise (loss within 1e-6, gradients within the bf16 limit of
+    phase 8), then timed beside the plain step with its launches a step;
+    (b) two processes sharing the card over gloo (picked because both see
+    one device UUID): the fp32 DP step on 2 x 4 rows against the
+    single-process step on the 8 rows (loss, grad norm, parameters at
+    tests/test_multichip.py's tolerances), both ranks bit-equal after it,
+    each rank's launches and its first sampling and scatter calls against
+    their plain versions; (c) ``python -m dfine_tpu_torch.apps.train``'s
+    main in two processes with ``train.dp.multihost`` on the trainer
+    phase's dataset (each train frame once, batch 4, one epoch): equal
+    ranks, every val frame gathered once, the final metrics equal to a
+    single-process eval of ``last.ckpt``, no file written by rank 1 (an
+    audit hook), ``best`` served by ``TorchModel``, each rank's launches.
+    The backend, step p50 and seconds of each run are printed.
+
 The apps, on the trainer's experiment (``phase_apps``):
 
-19. apps: the val frames relabelled with ``best``'s own fp32 detections;
+20. apps: the val frames relabelled with ``best``'s own fp32 detections;
     ``apps.export`` (the repo's formats: graph manifest and ``.pt2``);
     ``python -m dfine_tpu_torch.apps.infer`` in a subprocess over the val
     frames with the most detections (files written, polygon lines and
@@ -258,6 +277,26 @@ SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
 # phase_export holds the .pt2 to the eager fused model within EXPORT_SCORE_ATOL
 APPS_KEEP, APPS_INFER_FRAMES, APPS_BATCH_IMAGES, APPS_MAX_BATCH = 20, 4, 128, 32
 APPS_EXPORT_F1_SHARE = 0.9
+# data parallelism (phase_dp): the m det+seg step at world 1 over NCCL (bf16,
+# SyncBN forced) against the plain step, then DP_STEPS timed; two gloo ranks
+# sharing the card on 2 x 4 rows against the single-process step on the 8
+# rows (fp32, no CDN queries and no DDF, whose weights scale with the rank's
+# own batch by design, as in tests/test_multichip.py); the trainer's entry
+# point in two processes at DP_TRAINER_BATCH (2 rows a rank: SyncBN on).
+# The loss and parameter tolerances are tests/test_multichip.py's. Its grad
+# norm's too (1e-4; 1.1e-5 on an H100 80GB HBM3 at 700 W), though the
+# backbone convs ahead of a train-mode BatchNorm have gradients that cancel
+# at random weights: summing the batch as 2 x 4 rows instead of 8 moved
+# their first moments by 1.2 % a tensor and the grad norm by 2.5e-4 in a CPU
+# rehearsal at n det+seg, 320 px. AdamW's first step moves a parameter
+# by about DP_LR with the sign of its gradient, so an element whose gradient
+# is one of rounding may step the other way: every element within 2 DP_LR +
+# 2e-6 and at most DP_FAR_SHARE of them beyond the parameter tolerance
+# (tests/test_torch_port_dp.py's rule)
+DP_STEPS, DP_TRAINER_BATCH = 5, 4
+DP_OVERRIDES, DP_LOSSES = (("decoder.num_denoising", 0),), ("vfl", "boxes")
+DP_LOSS_RTOL, DP_GNORM_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-5, 1e-4, 1e-4, 1e-5
+DP_LR, DP_FAR_SHARE = 2e-5, 0.005
 # packages the port may use where present, never needs: the run reports which import
 OPTIONAL_PACKAGES = ("PIL", "matplotlib", "yaml", "imageio", "torchvision")
 
@@ -2594,6 +2633,521 @@ def phase_trainer(res):
         raise AssertionError("trainer: " + "; ".join(failures))
 
 
+@contextlib.contextmanager
+def captured_step_calls(calls: dict):
+    """Keep, in ``calls``, copies of the inputs of the first sampling-kernel
+    call (``"deform"``) and of the first default value-gradient scatter
+    (``"scatter"``) made while the context is open; every call still goes on
+    to its kernel."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    op, kernel = tda.ms_deform_attn_op, tda.rows_scatter_add
+
+    def deform(value, flat, loc, att, pts):
+        if "deform" not in calls:
+            calls["deform"] = (value.clone(), tuple(zip(flat[::2], flat[1::2])), loc.clone(),
+                               att.clone(), tuple(pts))
+        return op(value, flat, loc, att, pts)
+
+    def scatter(idx, contrib, hw):
+        if "scatter" not in calls:
+            calls["scatter"] = (idx.clone(), contrib.clone(), hw)
+        return kernel(idx, contrib, hw)
+
+    tda.ms_deform_attn_op = deform
+    tda.rows_scatter_add = tda._SCATTERS["pallas"] = scatter
+    try:
+        yield calls
+    finally:
+        tda.ms_deform_attn_op = op
+        tda.rows_scatter_add = tda._SCATTERS["pallas"] = kernel
+
+
+def calls_vs_plain(calls: dict) -> dict:
+    """The captured sampling and scatter calls, each run again through its
+    kernel and its plain version: max abs errors and whether each is within
+    its tolerance (FWD_TOL; SCATTER_ATOL / SCATTER_RTOL)."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    value, shapes, loc, att, pts = calls["deform"]
+    deform_err = (ms_deform_attn_fwd(value, shapes, loc, att, pts)
+                  - ms_deform_attn_fwd_plain(value, shapes, loc, att, pts)).abs().max().item()
+    idx, contrib, hw = calls["scatter"]
+    ours, plain = sr.rows_scatter_add(idx, contrib, hw), sr.rows_scatter_add_plain(idx, contrib, hw)
+    return {"ms_deform_attn_fwd": {"max_abs_err": deform_err, "ok": deform_err <= FWD_TOL,
+                                   "value": str(value.dtype), "batch": value.shape[0]},
+            "rows_scatter_add": {"max_abs_err": (ours - plain).abs().max().item(),
+                                 "ok": torch.allclose(ours, plain, atol=SCATTER_ATOL,
+                                                      rtol=SCATTER_RTOL), "rows": idx.shape[0]}}
+
+
+def _dp_step_counts() -> dict:
+    """The launches of one det+seg train step."""
+    return {"ms_deform_attn_fwd": DECODER_LAYERS,
+            "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_world1(res, failures) -> dict:
+    """The m det+seg step (bf16, batch 8, SyncBN forced) through the DP
+    program in a one-rank NCCL group, against the plain step from the same
+    weights on the same batch and CDN noise: SyncBN's statistics without a
+    group are the whole batch's by the same formula, and at world 1 every
+    collective is an identity, so the loss must agree as two plain steps do
+    (within 1e-6) and each parameter's gradient within the bf16 limit of
+    phase_train_bwd_variants (VARIANT_GRAD_REL plus twice the larger of
+    CONTROLS more plain steps; the one-element tensors and those nought to
+    rounding printed, not held). Then DP_STEPS timed DP steps, the launch
+    counts set to 0 before each and read after, and as many plain steps
+    (SyncBN off: what one process trains with)."""
+    import torch
+
+    from dfine_tpu_torch.models.layers import set_bn_axis
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dfine_tpu_torch.parallel import dp as par
+    from dfine_tpu_torch.train.criterion import CriterionConfig
+    from dfine_tpu_torch.train.train_step import make_train_step
+
+    base = {k: v.clone() for k, v in res["train_seg_init"].items()}
+    batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV, masks=True)
+    noise = _noise(TRAIN_BATCH, seed=3).to(DEV)
+    controls = [f"control{i}" for i in range(CONTROLS)]
+    runs = {}
+    set_bn_axis("dp")
+    try:
+        for run in ["plain", *controls, "dp"]:
+            state, step = _train_setup(torch.bfloat16, seg=True)
+            state.model.load_state_dict(base)
+            state.ema.load_state_dict(base)
+            if run == "dp":
+                backend = par.init_multihost(f"localhost:{_free_port()}", 1, 0, device=DEV)
+                step = par.make_dp_train_step(make_train_step(
+                    CriterionConfig(num_classes=NUM_CLASSES,
+                                    losses=("vfl", "boxes", "local", "masks")),
+                    compute_dtype=torch.bfloat16, axis_name="dp"))
+            _, m = step(state, batch, dn_noise=noise)
+            sync()
+            runs[run] = (float(m["loss"]), _unclipped_grads(state, m))
+        times, per_step = [], []
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        for _ in range(TRAIN_WARMUP):
+            step(state, batch, gen)
+        sync()
+        for _ in range(DP_STEPS):
+            reset_launch_counts()  # the main path of this run: one DP step
+            t = time.perf_counter()
+            _, m = step(state, batch, gen)
+            sync()
+            times.append(time.perf_counter() - t)
+            per_step.append(launch_counts())
+        finite = bool(np.isfinite([float(v) for v in m.values()]).all())
+    finally:
+        set_bn_axis(None)
+        par.shutdown()
+    del state, step
+    state, step = _train_setup(torch.bfloat16, seg=True)
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, gen)
+    sync()
+    plain_times = []
+    for _ in range(DP_STEPS):
+        t = time.perf_counter()
+        step(state, batch, gen)
+        sync()
+        plain_times.append(time.perf_counter() - t)
+    del state, step
+    loss0, g0 = runs["plain"]
+    control = {k: max(rel_norms(g0, runs[c][1], [k])[k] for c in controls) for k in g0}
+    rms_all = _rms_all(g0)
+    exempt = {k for k, g in g0.items() if g.numel() == 1
+              or float(g.norm()) / math.sqrt(g.numel()) < ROUNDING_SHARE * rms_all}
+    rel = rel_norms(g0, runs["dp"][1], [k for k in g0 if k not in exempt])
+    share = {k: r / (VARIANT_GRAD_REL["bf16"] + 2 * control[k]) for k, r in rel.items()}
+    p50, p90 = percentiles(times)
+    out = {"backend": backend, "loss": runs["dp"][0], "plain_loss": loss0,
+           "control_losses_equal": all(runs[c][0] == loss0 for c in controls),
+           "n_checked": len(rel), "n_exempt": len(exempt), "max_rel": max(rel.values()),
+           "max_share_of_limit": max(share.values()), "worst_share": _worst(share, 3),
+           "step_p50_ms": p50, "step_p90_ms": p90,
+           "plain_step_p50_ms": percentiles(plain_times)[0],
+           "plain_step_p90_ms": percentiles(plain_times)[1], "launches_per_step": per_step[0],
+           "metrics_finite": finite}
+    if backend != "nccl":
+        failures.append(f"world 1: backend {backend}, want nccl")
+    if abs(runs["dp"][0] - loss0) > 1e-6 * abs(loss0):
+        failures.append(f"world 1: loss {runs['dp'][0]} vs the plain step's {loss0}")
+    bad = {k: v for k, v in share.items() if not v <= 1.0}
+    if bad:
+        failures.append(f"world 1: {len(bad)} gradients beyond their limits: {_worst(bad)}")
+    if any(c != _dp_step_counts() for c in per_step) or not finite:
+        failures.append(f"world 1: launches {per_step}, finite {finite}")
+    res["dp_world1_counts"] = per_step[0]
+    return out
+
+
+_DP_RANK = r"""
+import sys, time
+import torch
+
+import chip_smoke as cs
+from dfine_tpu_torch.models.dfine import build_model
+from dfine_tpu_torch.models.layers import set_bn_axis
+from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from dfine_tpu_torch.parallel import dp as par
+from dfine_tpu_torch.train.criterion import CriterionConfig
+from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
+from dfine_tpu_torch.train.train_step import TrainState, make_train_step
+from dfine_tpu_torch.utils.checkpoint import state_dict_of
+
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+backend = par.init_multihost(f"localhost:{port}", 2, rank, device=cs.DEV)  # both on card 0
+model = build_model(cs.SIZE, cs.NUM_CLASSES, True, device=cs.DEV, cfg_overrides=cs.DP_OVERRIDES)
+state = TrainState.create(model, build_optimizer(model, OptimConfig()))
+step = par.make_dp_train_step(make_train_step(
+    CriterionConfig(num_classes=cs.NUM_CLASSES, losses=cs.DP_LOSSES),
+    compute_dtype=torch.float32, axis_name="dp"))
+batch = par.shard_batch(cs.make_train_batch(cs.TRAIN_BATCH, seed=7, device=cs.DEV, masks=True))
+set_bn_axis("dp")
+calls = {}
+with cs.captured_step_calls(calls):
+    reset_launch_counts()  # the main path of this rank: one DP step
+    _, m = step(state, batch)
+    cs.sync()
+    counts = launch_counts()
+first = {"metrics": {k: float(v) for k, v in m.items()}, "state": state_dict_of(state),
+         "counts": counts, "rows": batch["images"].shape[0]}
+times, per_step = [], []
+for _ in range(cs.DP_STEPS):
+    reset_launch_counts()
+    t = time.perf_counter()
+    step(state, batch)
+    cs.sync()
+    times.append(time.perf_counter() - t)
+    per_step.append(launch_counts())
+torch.save({**first, "backend": backend, "step_s": times, "per_step": per_step,
+            "vs_plain": cs.calls_vs_plain(calls)}, f"{out}/rank{rank}.pt")
+par.shutdown()
+print(f"RANK{rank}_OK")
+"""
+
+
+def _run_ranks(code: str, argv_of, timeout: int):
+    """Two processes running ``code`` (``python -c``) from the checkout's
+    root, rank r with ``argv_of(r)``; fails unless both exit 0. Returns
+    their outputs and the seconds until both ended."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv_of(r)], cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    bad = [(r, p.returncode, err[-3000:]) for r, (p, (_, err)) in enumerate(zip(procs, outs))
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"ranks failed: {bad}")
+    return outs, seconds
+
+
+def _far_share(got: dict, ref: dict) -> tuple:
+    """The parameters of ``got`` against ``ref`` (state dicts): the largest
+    gap, and the share of parameter elements beyond DP_PARAM_RTOL /
+    DP_PARAM_ATOL; the BatchNorm statistics' largest gap beyond rtol 1e-4,
+    atol 1e-5, and whether their counters are equal."""
+    import torch
+
+    far, n_el, gap, stats_far, counters = 0, 0, 0.0, 0.0, True
+    for k, v in got.items():
+        r = ref[k].to(v.device)
+        if k.endswith("num_batches_tracked"):
+            counters &= torch.equal(v, r)
+        elif k.endswith(("running_mean", "running_var")):
+            stats_far = max(stats_far, float(((v - r).abs() - 1e-4 * r.abs() - 1e-5).max()))
+        else:
+            gap = max(gap, float((v - r).abs().max()))
+            far += int((~torch.isclose(v, r, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL)).sum())
+            n_el += v.numel()
+    return gap, far / n_el, stats_far, counters
+
+
+def _dp_gloo(res, failures) -> dict:
+    """Two ranks sharing the card over gloo (the backend choice sees one
+    UUID twice): the m det+seg DP step (fp32, SyncBN) on 2 x 4 rows of the
+    8-row batch, against the single-process step on all 8 rows (SyncBN's
+    formula over the whole batch) from the same weights; both ranks
+    bit-equal after it; each rank's launches of its compared step and of
+    DP_STEPS timed ones, and its first sampling and scatter calls against
+    their plain versions."""
+    import tempfile
+
+    import torch
+
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.models.layers import set_bn_axis
+    from dfine_tpu_torch.train.criterion import CriterionConfig
+    from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from dfine_tpu_torch.train.train_step import TrainState, make_train_step
+
+    with tempfile.TemporaryDirectory() as out:
+        port = _free_port()
+        _, seconds = _run_ranks(_DP_RANK, lambda r: (str(r), str(port), out), 900)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    model = build_model(SIZE, NUM_CLASSES, True, device=DEV, cfg_overrides=DP_OVERRIDES)
+    state = TrainState.create(model, build_optimizer(model, OptimConfig()))
+    step = make_train_step(CriterionConfig(num_classes=NUM_CLASSES, losses=DP_LOSSES),
+                           compute_dtype=torch.float32)
+    set_bn_axis("dp")
+    try:
+        _, m = step(state, make_train_batch(TRAIN_BATCH, seed=7, device=DEV, masks=True))
+    finally:
+        set_bn_axis(None)
+    sync()
+    ref = {k: v.detach() for k, v in state.model.state_dict().items()}
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    a, b = (r["state"] for r in ranks)
+    bit_equal = all(torch.equal(v, b[part][k]) for part in ("model", "ema")
+                    for k, v in a[part].items())
+    out = {"backend": [r["backend"] for r in ranks], "seconds": seconds,
+           "single_loss": loss, "single_grad_norm": gnorm, "ranks_bit_equal": bit_equal,
+           "rows_per_rank": [r["rows"] for r in ranks]}
+    for i, r in enumerate(ranks):
+        gap, far, stats_far, counters = _far_share(r["state"]["model"], ref)
+        p50, p90 = percentiles(r["step_s"])
+        out[f"rank{i}"] = {"loss": r["metrics"]["loss"], "grad_norm": r["metrics"]["grad_norm"],
+                           "param_max_gap": gap, "param_far_share": far,
+                           "bn_stats_beyond_tol": stats_far, "counters_equal": counters,
+                           "launches": r["counts"], "launches_per_timed_step": r["per_step"][0],
+                           "step_p50_ms": p50, "step_p90_ms": p90, "vs_plain": r["vs_plain"]}
+        if r["backend"] != "gloo":
+            failures.append(f"gloo rank {i}: backend {r['backend']}")
+        if not (abs(r["metrics"]["loss"] - loss) <= DP_LOSS_RTOL * abs(loss)
+                and abs(r["metrics"]["grad_norm"] - gnorm) <= DP_GNORM_RTOL * abs(gnorm)):
+            failures.append(f"gloo rank {i}: loss {r['metrics']['loss']} / grad norm "
+                            f"{r['metrics']['grad_norm']} vs single {loss} / {gnorm}")
+        if gap > 2 * DP_LR + 2e-6 or far > DP_FAR_SHARE or stats_far > 0 or not counters:
+            failures.append(f"gloo rank {i}: parameters {out[f'rank{i}']}")
+        if r["counts"] != _dp_step_counts() or any(c != _dp_step_counts() for c in r["per_step"]):
+            failures.append(f"gloo rank {i}: launches {r['counts']}, {r['per_step']}")
+        if not all(v["ok"] for v in r["vs_plain"].values()):
+            failures.append(f"gloo rank {i}: kernels vs plain {r['vs_plain']}")
+    if not bit_equal:
+        failures.append("gloo: the ranks' parameters or buffers differ")
+    res["dp_gloo_counts"] = [r["counts"] for r in ranks]
+    return out
+
+
+_DP_TRAINER = r"""
+import os, sys, time
+import torch
+
+import chip_smoke as cs
+import dfine_tpu_torch.apps.train as app
+from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from dfine_tpu_torch.parallel import dp as par
+from dfine_tpu_torch.train import trainer as tr
+
+rank, out, run_dir = int(sys.argv[1]), sys.argv[2], os.path.realpath(sys.argv[3])
+argv = sys.argv[4:] + [f"train.dp.multihost.process_id={rank}"]
+writes, gathered, seen = [], [], {}
+
+
+def audit(event, args):
+    # every file this process opens for writing in the run directory
+    if event == "open" and isinstance(args[0], str):
+        flags = args[2] if isinstance(args[2], int) else 0
+        if os.path.realpath(args[0]).startswith(run_dir) and (
+                any(c in (args[1] or "") for c in "wax+")
+                or flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)):
+            writes.append(args[0])
+
+
+sys.addaudithook(audit)
+save = torch.save  # writes through its own file writer, which the hook does not see
+
+
+def counted_save(obj, f, *args, **kwargs):
+    audit("open", (str(f), "wb", 0))
+    return save(obj, f, *args, **kwargs)
+
+
+torch.save = counted_save
+gather = par.gather_objects
+par.gather_objects = lambda local: gathered.append(gather(local)) or gathered[-1]
+
+
+class Kept(tr.Trainer):
+    def _train_epochs(self):
+        super()._train_epochs()
+        seen.update(world=self.world, dp=self.dp_enabled, sync_bn=self.sync_bn,
+                    backend=par.backend(), step=self.state.step,
+                    model={k: v.cpu() for k, v in self.state.model.state_dict().items()},
+                    step_s=self.timing["step_s"])
+
+    def train(self):
+        seen["final"] = super().train()
+        seen["evals"] = len(self.timing["eval"])  # the epochs' and the final one
+        return seen["final"]
+
+
+app.Trainer = Kept
+reset_launch_counts()  # the main path of this rank: the whole run
+t0 = time.perf_counter()
+app.main(argv, device=None if cs.DEV == "cuda" else cs.DEV)  # the card, as a user runs it
+cs.sync()
+seen.update(seconds=time.perf_counter() - t0, counts=launch_counts(), writes=writes,
+            ids=[sorted(i for i, _ in g) for g in gathered if g and isinstance(g[0], tuple)])
+save(seen, f"{out}/rank{rank}.pt")
+print(f"RANK{rank}_OK")
+"""
+
+
+def _dp_trainer(res, failures) -> dict:
+    """``python -m dfine_tpu_torch.apps.train``'s main in two processes on
+    the card with ``train.dp.multihost`` (each its own process_id; gloo),
+    on the trainer phase's dataset with each train frame listed once, batch
+    DP_TRAINER_BATCH, one epoch: both ranks' final parameters equal; every
+    eval's gather holds each val frame once; the final val metrics equal a
+    single-process ``Trainer.evaluate`` of the written ``last.ckpt`` (best
+    is last after one epoch); rank 1 wrote no file; ``best`` serves through
+    ``TorchModel``; each rank's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dfine_tpu_torch import TorchModel
+    from dfine_tpu_torch.config import load_config
+    from dfine_tpu_torch.data.image_io import read_image
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dfine_tpu_torch.train.trainer import Trainer
+
+    run = res["trainer_run"]
+    root, config = run["root"], run["config"]
+    ds = os.path.join(root, "data", "dataset")
+    with open(os.path.join(ds, "train.csv")) as f:
+        names = list(dict.fromkeys(f.read().split()))
+    with open(os.path.join(ds, "train.csv"), "w") as f:  # each train frame once
+        f.write("".join(f"{x}\n" for x in names))
+    with open(os.path.join(ds, "val.csv")) as f:
+        n_val = len(f.read().split())
+    run_dir = os.path.join(root, "run_dp")
+    base = [o for o in run["overrides"] if not o.startswith(("train.path_to_save=",
+                                                              "train.batch_size=",
+                                                              "train.epochs="))]
+    base += [f"train.batch_size={DP_TRAINER_BATCH}", "train.epochs=1",
+             f"train.eval_preds_path={run_dir}/previews"]
+    port = _free_port()
+    argv = [config, *base, f"train.path_to_save={run_dir}", "train.dp.enabled=True",
+            "train.dp.n_devices=1", "train.dp.multihost.enabled=True",
+            "train.dp.multihost.num_processes=2",
+            f"train.dp.multihost.coordinator_address=localhost:{port}"]
+    with tempfile.TemporaryDirectory() as out:
+        outs, seconds = _run_ranks(_DP_TRAINER, lambda r: (str(r), out, run_dir, *argv), 900)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    a, b = ranks
+    equal = all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+    steps = len(a["step_s"])
+    batches = -(-n_val // DP_TRAINER_BATCH)
+    want = [{"ms_deform_attn_fwd": DECODER_LAYERS * (steps + a["evals"] * len(
+                range(r, batches, 2))),
+             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
+             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0} for r in range(2)]
+    # a single-process eval of the written last.ckpt
+    single_dir = os.path.join(root, "run_dp_single")
+    os.makedirs(single_dir)
+    shutil.copyfile(os.path.join(run_dir, "last.ckpt"), os.path.join(single_dir, "last.ckpt"))
+    single = Trainer(load_config(config, base + [f"train.path_to_save={single_dir}"]),
+                     device=DEV)
+    single.load_checkpoint("last")
+    ref = single.evaluate("val", extended=True)
+    ref.pop("extended_metrics", None)
+    got = a["final"]["val"]
+    eval_gap = {k: abs(v - ref[k]) / max(abs(ref[k]), 1e-12) for k, v in got.items()
+                if isinstance(v, float)}
+    del single
+    # best, served
+    frame = read_image(os.path.join(ds, "images", "frame%03d.png" % TRAINER_TRAIN_FRAMES))
+    served = TorchModel(SIZE, os.path.join(run_dir, "best.ckpt"), TRAINER_CLASSES, IMG, IMG,
+                        conf_thresh=0.0, half=False, enable_mask_head=True, device=DEV)
+    reset_launch_counts()
+    pred = served(frame[..., ::-1])[0]
+    sync()
+    serve_counts = launch_counts()
+    served_ok = bool(np.isfinite(pred["scores"]).all()) and len(pred["scores"]) > 0
+    del served
+    out = {"backend": [r["backend"] for r in ranks], "seconds": seconds, "steps": steps,
+           "world": a["world"], "dp": a["dp"], "sync_bn": a["sync_bn"],
+           "ranks_equal": equal, "eval_ids": a["ids"], "final_val": got,
+           "eval_rel_gap_to_single": max(eval_gap.values()) if eval_gap else None,
+           "rank1_writes": b["writes"], "launches": [r["counts"] for r in ranks],
+           "served_best": {"kept": len(pred["scores"]), "finite": served_ok,
+                           "launches": serve_counts},
+           **{f"rank{i}_step_p50_ms": percentiles(r["step_s"])[0] for i, r in enumerate(ranks)},
+           **{f"rank{i}_seconds": r["seconds"] for i, r in enumerate(ranks)}}
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"] or not (a["dp"] and a["world"] == 2):
+        failures.append(f"trainer: backends {out['backend']}, dp {a['dp']}, world {a['world']}")
+    if not equal or a["step"] != b["step"]:
+        failures.append("trainer: the ranks' final parameters differ")
+    if not a["ids"] or any(ids != list(range(n_val)) for r in ranks for ids in r["ids"]):
+        failures.append(f"trainer: gathered eval ids {a['ids']} / {b['ids']}")
+    if set(got) != set(ref) or not all(g <= 1e-6 for g in eval_gap.values()) or any(
+            got[k] != ref[k] for k in got if not isinstance(got[k], float)):
+        failures.append(f"trainer: final val {got} vs single-process eval of last {ref}")
+    if b["writes"] or not a["writes"]:
+        failures.append(f"trainer: writes rank 0 {len(a['writes'])}, rank 1 {b['writes']}")
+    if [r["counts"] for r in ranks] != want:
+        failures.append(f"trainer: launches {[r['counts'] for r in ranks]}, want {want}")
+    if not served_ok or serve_counts["ms_deform_attn_fwd"] != DECODER_LAYERS:
+        failures.append(f"trainer: serving best {out['served_best']}")
+    res["dp_trainer_counts"] = [r["counts"] for r in ranks]
+    return out
+
+
+def phase_dp(res):
+    """Data parallelism (``dfine_tpu_torch.parallel``) on the one card: the
+    DP program at world 1 over NCCL, two gloo ranks sharing the card against
+    the single-process step, and the trainer's entry point in two processes
+    (see ``_dp_world1``, ``_dp_gloo``, ``_dp_trainer``). Two ranks on one
+    card measure no scaling: the gloo runs are a correctness path."""
+    import torch
+
+    t0, failures = time.perf_counter(), []
+    world1 = _dp_world1(res, failures)
+    torch.cuda.empty_cache()
+    gloo = _dp_gloo(res, failures)
+    torch.cuda.empty_cache()
+    trainer = _dp_trainer(res, failures)
+    emit({"phase": "dp", "model": f"{SIZE} det+seg {IMG}px", "world1_nccl_bf16": world1,
+          "gloo_2_ranks_fp32": gloo, "trainer_2_processes": trainer,
+          "tolerances": {"loss_rtol": DP_LOSS_RTOL, "grad_norm_rtol": DP_GNORM_RTOL,
+                         "param_rtol": DP_PARAM_RTOL, "param_atol": DP_PARAM_ATOL,
+                         "param_max_gap": 2 * DP_LR + 2e-6, "param_far_share": DP_FAR_SHARE},
+          "seconds": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError("dp: " + "; ".join(failures))
+
+
 def relabel_val(trainer, keep: int):
     """Write, as each val frame's labels, ``trainer``'s own detections of it
     (its eval path, fp32) above the threshold that keeps at most ``keep`` in
@@ -2950,6 +3504,14 @@ def in_situ_ms(res, kernel: str):
     return sum(v["ms_per_launch"] * v["count_per_call"] for v in rows) / n if n else None
 
 
+def dp_launches(res, name: str) -> dict:
+    """``name``'s launches in phase_dp: one DP step at world 1 (NCCL), each
+    gloo rank's compared step, each trainer rank's whole run."""
+    return {"world1_nccl_step": res["dp_world1_counts"][name],
+            "gloo_rank_step": [c[name] for c in res["dp_gloo_counts"]],
+            "trainer_rank_run": [c[name] for c in res["dp_trainer_counts"]]}
+
+
 def kernel_line(res):
     d = res["deform"]
     # (name, pallas_call line, launch counts, path, kernel symbol)
@@ -2971,6 +3533,7 @@ def kernel_line(res):
          "train_seg_launches": res["train_seg_counts"]["ms_deform_attn_fwd"],
          "train_l_launches": res["train_l_counts"]["ms_deform_attn_fwd"],
          "trainer_launches": res["trainer_counts"]["ms_deform_attn_fwd"],
+         "dp_launches": dp_launches(res, "ms_deform_attn_fwd"),
          "train_shape_ms": res["deform_train"]["ms"],
          "train_in_situ_ms": in_situ_ms(res, "ms_deform_attn_fwd_kernel"),
          "empty_launch_ms": d["empty_launch_ms"],
@@ -2989,6 +3552,7 @@ def kernel_line(res):
          "train_seg_launches": res["train_seg_counts"][name],
          "train_l_launches": res["train_l_counts"][name],
          "trainer_launches": res["trainer_counts"][name],
+         "dp_launches": dp_launches(res, name),
          "apps_launches": sum(c[name] for c in res["apps_counts"].values()),
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
          "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
@@ -3033,7 +3597,7 @@ def main() -> int:
                phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,
                phase_train_l_frozen, phase_serving_modes, phase_deploy, phase_int8,
-               phase_aot_graph, phase_export, phase_trainer, phase_apps):
+               phase_aot_graph, phase_export, phase_trainer, phase_dp, phase_apps):
         t0 = time.perf_counter()
         try:
             fn(res)

@@ -36,23 +36,71 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     return _ACTIVATIONS[name]
 
 
+# ---------------------------------------------------------------- SyncBN --
+# Cross-rank BatchNorm (layers.py:25-47): with an axis set, every train-mode
+# BatchNorm2d takes its statistics over the process group, as flax's
+# BatchNorm with ``axis_name`` does over the mesh axis. The trainer sets it
+# when the per-rank batch is small; eval-mode forwards never read it.
+
+_BN_AXIS: Optional[str] = None
+
+
+def set_bn_axis(axis: Optional[str]) -> None:
+    """Turn cross-rank SyncBN on (``axis="dp"``) or off (None) for every
+    later train-mode forward."""
+    global _BN_AXIS
+    _BN_AXIS = axis
+
+
+def bn_axis(train: bool) -> Optional[str]:
+    return _BN_AXIS if train else None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm computed in fp32 (layers.py:136-144), with flax's update of
     the running statistics in ``train()`` mode: momentum 0.9 in flax's sense
     (torch's ``momentum=0.1``) and the *biased* batch variance, where torch's
-    own BatchNorm stores the unbiased one."""
+    own BatchNorm stores the unbiased one. Under SyncBN (``set_bn_axis``)
+    the statistics are those of the global batch (``_sync_forward``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if not self.training:
             return super().forward(x32).to(x.dtype)
+        if _BN_AXIS is not None:
+            return self._sync_forward(x32).to(x.dtype)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return y.to(x.dtype)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _sync_forward(self, x32: torch.Tensor) -> torch.Tensor:
+        """Statistics over every rank's rows: the fp32 sum, sum of squares
+        and count, summed over the group by a differentiable all-reduce (its
+        backward sums the statistics' gradients over the ranks, as psum's
+        transpose does); mean and the biased variance E[x^2] - E[x]^2,
+        clipped at 0, as flax computes them."""
+        import torch.distributed as dist
+
+        c = x32.shape[1]
+        stats = torch.cat([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)),
+                           x32.new_full((1,), x32.numel() // c)])
+        if dist.is_available() and dist.is_initialized():
+            from torch.distributed.nn.functional import all_reduce
+
+            stats = all_reduce(stats)
+        mean = stats[:c] / stats[-1]
+        var = (stats[c: 2 * c] / stats[-1] - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self._update_running(mean.detach(), var.detach())
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return x32 * scale[:, None, None] + (self.bias - mean * scale)[:, None, None]
 
 
 class LayerNorm(nn.LayerNorm):

@@ -11,15 +11,16 @@ on the host). Losses: ``vfl``, ``focal`` (with ``label_smoothing``),
 ``boxes``, ``local`` (FGL + DDF) and ``masks`` (focal BCE + Dice of the
 matched queries' lazy mask logits, with the DN zip truncation of
 criterion.py:520-591). Class-agnostic encoder sets are padded to C classes
-with -20 columns and matched to class 0 (criterion.py:338-366). The
-normalizers are those of one process: the all-reduce of data parallelism
-is not ported.
+with -20 columns and matched to class 0 (criterion.py:338-366). With
+``axis_name`` (data parallelism) the box normalizers are means over the
+ranks (criterion.py:380-381); the DN group count, the DDF weights and the
+mask normalizer stay per rank, as in JAX.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -224,10 +225,23 @@ def _gt_masks(targets, size):
     return gt.clamp(0.0, 1.0), targets.get("mask_valid", targets["valid"])
 
 
+def _mean_over_ranks(x: torch.Tensor, axis_name: Optional[str]) -> torch.Tensor:
+    """psum(x) / world over the process group of ``axis_name``."""
+    if axis_name is None:
+        return x
+    from ..parallel.dp import all_reduce_mean_
+
+    x = x.clone()
+    all_reduce_mean_([x])
+    return x
+
+
 def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
-                      cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+                      cfg: CriterionConfig, axis_name: Optional[str] = None
+                      ) -> Dict[str, torch.Tensor]:
     """Weighted losses of every supervised set and their ``total``, each
-    ``nan_to_num``'ed (criterion.py:315-613, one process)."""
+    ``nan_to_num``'ed (criterion.py:315-613); ``axis_name``: the box
+    normalizers averaged over the ranks."""
     labels, tboxes, valid = targets["labels"].long(), targets["boxes"].float(), targets["valid"]
     b = valid.shape[0]
     use, wd = set(cfg.losses), cfg.weight_dict
@@ -259,8 +273,8 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
     costs = matching_cost(lg_s.detach(), bx_s.detach(), lb_s, tboxes, valid, cfg.matcher)
     match, go_q, go_t, go_valid = solve_matchings(costs, valid)
 
-    num_boxes = valid.sum().float().clamp_min(1.0)
-    num_boxes_go = go_valid.sum().float().clamp_min(1.0)
+    counts = _mean_over_ranks(torch.stack([valid.sum(), go_valid.sum()]).float(), axis_name)
+    num_boxes, num_boxes_go = counts.clamp_min(1.0).unbind()
     scale = 8.0 / b  # DDF pos/neg weights: batch-size invariant
     mask_cnt = go_valid.sum().float() * 4.0
     num_pos = (mask_cnt * scale).clamp_min(1e-12).sqrt()

@@ -16,8 +16,17 @@ so it has no gradient, is outside the clip's norm and ``grad_norm``, and
 takes no update and no weight decay, while its BatchNorm still updates its
 statistics), ``ema_base``, and gradient accumulation, which the step reads
 from its optimizer (``OptimConfig.b_accum_steps``: it steps on the mean of
-k micro-steps, and the EMA follows only the optimizer steps). Data
-parallelism (``axis_name``) is not ported and raises.
+k micro-steps, and the EMA follows only the optimizer steps).
+
+Data parallelism (``axis_name="dp"``, JAX's step under ``shard_map``): each
+rank runs the step on its rows of the global batch in a process group
+(``parallel/dp.py``). The criterion's box normalizers are means over the
+ranks; the gradients are averaged over the ranks before the accumulation,
+the clip and the update (a parameter without a gradient on one rank enters
+as zeros, one without a gradient on any rank keeps none); the BatchNorm
+running statistics are averaged after the forward, so the EMA follows the
+averaged ones (``num_batches_tracked`` is not averaged); the metrics are
+averaged. The CDN noise is each rank's own (``parallel.rank_generator``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..models.denoising import CdnNoise
+from ..parallel.dp import all_reduce_grads_, all_reduce_mean_
 from .criterion import CriterionConfig, criterion_forward
 from .optim import EMA_BASE, Optimizer, ema_update
 
@@ -56,9 +66,8 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
     """The step function. ``compute_dtype`` bf16 runs the forward under
     autocast; float32 runs it in full precision. ``update_mask``: {parameter
     name: trainable}, as ``optim.freeze_mask`` gives it. The number of
-    micro-steps an optimizer step takes is the optimizer's own."""
-    if axis_name is not None:
-        raise NotImplementedError("data parallelism (axis_name) is not ported yet")
+    micro-steps an optimizer step takes is the optimizer's own. ``axis_name``
+    ("dp"): the data-parallel step of one rank (see the module doc)."""
     frozen = [name for name, keep in (update_mask or {}).items() if not keep]
 
     def step(state: TrainState, batch: Dict[str, Any],
@@ -77,8 +86,11 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         with torch.autocast(dev.type, dtype=compute_dtype,
                             enabled=compute_dtype != torch.float32):
             out = model(batch["images"], batch["targets"], dn_noise, generator)
-        losses = criterion_forward(out, batch["targets"], crit_cfg)
+        losses = criterion_forward(out, batch["targets"], crit_cfg, axis_name=axis_name)
         losses["total"].backward()
+        if axis_name is not None:
+            all_reduce_grads_(opt.params)
+            all_reduce_mean_(bn_statistics(model))
         grad_norm = opt.step()
         state.step += 1
         if opt.mini_step == 0:  # an optimizer step: its count drives the warm-up
@@ -86,9 +98,21 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         metrics = {"loss": losses["total"].detach(), "grad_norm": grad_norm.detach()}
         metrics.update({k: v.detach() for k, v in losses.items()
                         if "_" not in k or k in METRIC_TERMS})
+        if axis_name is not None:
+            names = sorted(metrics)
+            stacked = torch.stack([metrics[k].float() for k in names])
+            all_reduce_mean_([stacked])
+            metrics = dict(zip(names, stacked.unbind()))
         return state, metrics
 
+    step.axis_name = axis_name
     return step
+
+
+def bn_statistics(model: nn.Module):
+    """The running means and variances of every BatchNorm of ``model``."""
+    return [t for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for t in (m.running_mean, m.running_var)]
 
 
 def make_eval_step():

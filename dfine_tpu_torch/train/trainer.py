@@ -23,8 +23,20 @@
 
 The device is the card unless the caller passes one (``device="cpu"``
 runs every kernel's plain version); ``train.device`` of the shared config
-is the JAX package's and is not read. Data parallelism (``train.dp``)
-raises: it is not ported.
+is the JAX package's and is not read.
+
+Data parallelism (``train.dp``, trainer.py:49-58, :170-189): with
+``multihost.enabled`` the trainer first joins the process group
+(``parallel.init_multihost``; ``apps.train`` joins it for the ranks it
+spawns). DP runs when ``dp.enabled`` is set and the group has more than one
+rank (with one, the log says it is off): every rank loads the same global
+batch and steps on its rows with the ``axis_name="dp"`` step, SyncBN on when
+``dp.sync_bn`` is ``auto`` and the per-rank batch is below 4 (``true`` /
+``false`` force it). Eval batches are strided over the ranks and gathered
+(trainer.py:266-308), so every rank takes the same decisions; checkpoints,
+sidecars, ``metrics.csv``, ``config.yaml``, plots and previews are written
+by rank 0 only, and every rank restores on resume. A crash under more than
+one process re-raises instead of going on to the final eval.
 """
 
 from __future__ import annotations
@@ -49,7 +61,9 @@ from ..eval.rle import masks_to_rle
 from ..eval.validator import Validator
 from ..infer.torch_model import decode
 from ..models.dfine import build_model, reset_parameters
+from ..models.layers import set_bn_axis
 from ..ops.kernels import check_kernel_limits
+from ..parallel import dp as par
 from ..postprocess import postprocess_predictions
 from ..utils.checkpoint import restore_state, save_state
 from ..utils.logging import MetricsCSV, WandbGate, get_logger
@@ -69,12 +83,14 @@ class Trainer:
         self.cfg = cfg
         t = cfg.train
         dp = t.get("dp") or {}
-        if dp.get("enabled"):
-            raise NotImplementedError("train.dp.enabled: data parallelism (Slice E) is not "
-                                      "ported to dfine_tpu_torch yet")
-        if (dp.get("multihost") or {}).get("enabled"):
-            raise NotImplementedError("train.dp.multihost.enabled: multi-host training "
-                                      "(Slice E) is not ported to dfine_tpu_torch yet")
+        mh = dp.get("multihost") or {}
+        if mh.get("enabled") and par.backend() is None:
+            # join the group before anything else (trainer.py:49-58)
+            par.init_multihost(str(mh["coordinator_address"]), int(mh["num_processes"]),
+                               int(mh["process_id"]), device=self.device)
+        self.world = par.process_count()
+        self.main = par.is_main_process()
+        self.dp_enabled = bool(dp.get("enabled")) and self.world > 1
         self.task = cfg.task
         self.segment = cfg.task == "segment"
         # with the mask head on, box IoU joins the best-checkpoint decision metric
@@ -92,9 +108,24 @@ class Trainer:
 
         self.path_to_save = Path(t.path_to_save)
         self.path_to_save.mkdir(parents=True, exist_ok=True)
-        self.logger = get_logger(self.path_to_save / "train_log.txt")
+        # rank 0 writes the run's files; the other ranks log to the console
+        self.logger = get_logger(self.path_to_save / "train_log.txt" if self.main else None)
         self.metrics_csv = MetricsCSV(self.path_to_save / "metrics.csv")
-        save_config(cfg, self.path_to_save / "config.yaml")
+        if self.main:
+            save_config(cfg, self.path_to_save / "config.yaml")
+        self.sync_bn = False
+        if self.dp_enabled:
+            if t.batch_size % self.world:
+                raise ValueError(f"train.batch_size {t.batch_size} does not divide by the "
+                                 f"{self.world} ranks")
+            per_rank = t.batch_size // self.world
+            sync_bn = dp.get("sync_bn", "auto")
+            self.sync_bn = sync_bn is True or (sync_bn == "auto" and per_rank < 4)
+            set_bn_axis(par.AXIS if self.sync_bn else None)
+            self.logger.info(f"data parallelism: {self.world} ranks of {per_rank} rows, "
+                             f"backend {par.backend()}, SyncBN {'on' if self.sync_bn else 'off'}")
+        elif dp.get("enabled"):
+            self.logger.info("train.dp.enabled with one rank: data parallelism is off")
 
         self.loader = Loader(Path(t.data_path), t, task=cfg.task)
         self.train_iter, self.val_iter, self.test_iter = self.loader.build_dataloaders(
@@ -106,6 +137,7 @@ class Trainer:
         reset_parameters(model, torch.Generator().manual_seed(int(t.seed)))
         self._load_pretrained(model)
         model = model.to(self.device)
+        par.replicate(model)  # rank 0's weights on every rank
         if self.device.type == "cuda":
             check_kernel_limits(model)
         mc = model_config(cfg.model_name)
@@ -126,11 +158,15 @@ class Trainer:
         self.update_mask = (freeze_mask(model, bcfg.get("freeze_norm", False), freeze_stem)
                             if bcfg.get("freeze_norm") or freeze_stem else None)
         self.state = TrainState.create(model, build_optimizer(model, ocfg))
-        self.train_step = make_train_step(self.crit_cfg, compute_dtype=self.dtype,
-                                          ema_base=t.ema_momentum, update_mask=self.update_mask)
-        # the CDN noise of every step comes from this generator, on the device
-        self.generator = torch.Generator(device=self.device).manual_seed(int(t.seed) + 7)
-        self.wandb = WandbGate(bool(t.use_wandb), cfg.project_name, cfg.exp, cfg.to_dict())
+        step = make_train_step(self.crit_cfg, compute_dtype=self.dtype,
+                               axis_name=par.AXIS if self.dp_enabled else None,
+                               ema_base=t.ema_momentum, update_mask=self.update_mask)
+        self.train_step = par.make_dp_train_step(step) if self.dp_enabled else step
+        # the CDN noise of every step comes from this generator, on the
+        # device: each rank's own under DP
+        self.generator = par.rank_generator(int(t.seed) + 7, self.device)
+        self.wandb = WandbGate(bool(t.use_wandb) and self.main, cfg.project_name, cfg.exp,
+                               cfg.to_dict())
         self.best_metric = -1.0
         self.start_epoch = 0
         self.failure: Optional[BaseException] = None
@@ -180,16 +216,20 @@ class Trainer:
     def evaluate(self, split: str = "val", extended: bool = False,
                  save_previews: bool = False,
                  model: Optional[torch.nn.Module] = None) -> Dict:
-        """Metrics of ``model`` (default: ``eval_model()``) on ``split``."""
+        """Metrics of ``model`` (default: ``eval_model()``) on ``split``. With
+        more than one process, batch ``bi`` is evaluated by process ``bi %
+        world`` and the results are gathered, in image order, on every
+        process (trainer.py:266-308)."""
         # one dataset per split, so that its RAM cache lives across evals
         if split not in self._eval_ds:
             self._eval_ds[split] = self.loader.dataset(split, mode="val")
         ds = self._eval_ds[split]
         bs = self.cfg.train.batch_size
-        preds_all: List[Dict] = []
-        gts_all: List[Dict] = []
+        preds_all: List = []
+        gts_all: List = []
         n = len(ds)
-        times = {"images": n, "load_s": 0.0, "device_s": 0.0, "tail_s": 0.0}
+        pid, pc = par.process_index(), self.world
+        times = {"images": 0, "load_s": 0.0, "device_s": 0.0, "tail_s": 0.0}  # this process's
 
         def tail(p, g):
             gt_entry = {"labels": g["labels"], "boxes": g["boxes_abs"]}
@@ -203,8 +243,11 @@ class Trainer:
         workers = max(2, int(self.cfg.train.get("num_workers", 8)))
         with cf.ThreadPoolExecutor(workers) as pool:
             for bi, start in enumerate(range(0, n, bs)):
+                if bi % pc != pid:
+                    continue
                 t0 = time.perf_counter()
                 ids = list(range(start, min(start + bs, n)))
+                times["images"] += len(ids)
                 samples, gts = zip(*pool.map(ds.load_for_eval, ids))
                 images = torch.from_numpy(np.stack([s["image"] for s in samples], 0))
                 if bi and bi % 50 == 0:
@@ -218,9 +261,9 @@ class Trainer:
                                                 [g["orig_size"] for g in gts], self.conf_thresh,
                                                 self.keep_ratio)
                 for i, (p, gt_entry) in enumerate(pool.map(tail, preds, gts)):
-                    preds_all.append(p)
-                    gts_all.append(gt_entry)
-                    if save_previews and start == 0:
+                    preds_all.append((ids[i], p))
+                    gts_all.append((ids[i], gt_entry))
+                    if save_previews and start == 0 and self.main:
                         img_path, _ = ds._paths(ids[i])
                         save_eval_previews(Path(self.cfg.train.eval_preds_path),
                                            Path(img_path).stem, read_image(img_path), p,
@@ -230,6 +273,10 @@ class Trainer:
                 times["device_s"] += t2 - t1
                 times["tail_s"] += t3 - t2
         t4 = time.perf_counter()
+        if pc > 1:
+            preds_all, gts_all = par.gather_objects(preds_all), par.gather_objects(gts_all)
+        preds_all = [p for _, p in sorted(preds_all, key=lambda e: e[0])]
+        gts_all = [g for _, g in sorted(gts_all, key=lambda e: e[0])]
         v = Validator(gts_all, preds_all, self.label_to_name, conf_thresh=self.conf_thresh,
                       iou_thresh=self.cfg.train.iou_thresh,
                       mask_batch_size=self.cfg.train.mask_batch_size)
@@ -253,6 +300,10 @@ class Trainer:
         except Exception as e:  # a train crash must not lose the experiment
             self.failure = e
             self.logger.exception(f"training failed: {e}")
+            if self.world > 1:
+                # a rank that went on would call collectives out of step
+                # with its peers (trainer.py:335-341): fail the whole job
+                raise
         if not (self.path_to_save / "best.ckpt").exists():
             # the run ended before its first eval: there is no best to evaluate
             self.logger.error(f"no best.ckpt in {self.path_to_save}: the final eval is skipped")
@@ -284,7 +335,7 @@ class Trainer:
                 ts = time.perf_counter()
                 if batch is None:
                     break
-                _, metrics = self.train_step(self.state, to_device(batch, self.device),
+                _, metrics = self.train_step(self.state, self._to_device(batch),
                                              generator=self.generator)
                 # summed on the device (no host sync); read once an epoch
                 agg = metrics if agg is None else {k: agg[k] + v for k, v in metrics.items()}
@@ -307,10 +358,12 @@ class Trainer:
             self.logger.info(f"epoch {epoch}: train done ({dur:.0f}s), evaluating")
             metrics = self.evaluate("val")
             decision = float(np.mean([metrics[k] for k in self.decision_metrics if k in metrics]))
+            decision = par.broadcast_scalar(decision)  # every rank decides as rank 0
             row = {"epoch": epoch, "train_time_s": round(dur, 1),
                    "loss": mean.get("loss", 0.0), "decision": decision}
             row.update({k: v for k, v in metrics.items() if not isinstance(v, dict)})
-            self.metrics_csv.log(row)
+            if self.main:
+                self.metrics_csv.log(row)
             self.wandb.log({f"val/{k}": v for k, v in row.items()}, step=epoch)
             self.wandb.watch(self.state.model, grad_norm=mean.get("grad_norm"), step=epoch)
             self.logger.info(
@@ -323,8 +376,9 @@ class Trainer:
             if improved:  # best is this epoch's last
                 t0 = time.perf_counter()
                 best = self.path_to_save / "best.ckpt"
-                shutil.copyfile(self.path_to_save / "last.ckpt", best)
-                self._checkpoint_written("best", best.stat().st_size, t0)
+                if self.main:
+                    shutil.copyfile(self.path_to_save / "last.ckpt", best)
+                self._checkpoint_written("best", best.stat().st_size if self.main else 0, t0)
                 stale = 0
             else:
                 stale += 1
@@ -337,14 +391,16 @@ class Trainer:
         self.load_checkpoint("best")
         self.logger.info("final eval: running extended val eval")
         final = {"val": self.evaluate("val", extended=True, save_previews=True)}
-        self.plot_writer = self._last_validator.save_plots(self.path_to_save / "plots",
-                                                           logger=self.logger)
+        if self.main:
+            self.plot_writer = self._last_validator.save_plots(self.path_to_save / "plots",
+                                                               logger=self.logger)
         if self.loader.splits["test"]:
             final["test"] = self.evaluate("test", extended=True)
         ext_csv = MetricsCSV(self.path_to_save / "extended_metrics.csv")
         for split, m in final.items():
             ext = m.pop("extended_metrics", {})
-            ext_csv.log({"split": split, **m, **ext})
+            if self.main:
+                ext_csv.log({"split": split, **m, **ext})
             self.logger.info(f"final {split}: " + ", ".join(
                 f"{k}={v:.4f}" for k, v in m.items() if isinstance(v, (int, float))))
         self.wandb.finish()
@@ -362,10 +418,18 @@ class Trainer:
         self._checkpoint_written(tag, nbytes, t0)
 
     def _checkpoint_written(self, tag: str, nbytes: int, t0: float) -> None:
-        (self.path_to_save / f"{tag}.meta.json").write_text(
-            json.dumps({"best_metric": self.best_metric}))
+        if self.main:
+            (self.path_to_save / f"{tag}.meta.json").write_text(
+                json.dumps({"best_metric": self.best_metric}))
+        par.barrier(f"{tag}.meta.json")  # the other ranks read it after rank 0 wrote it
         self.timing["checkpoint"].append({"tag": tag, "step": self.state.step, "bytes": nbytes,
                                           "seconds": time.perf_counter() - t0})
+
+    def _to_device(self, batch: Dict) -> Dict:
+        """A loader batch on the device: under DP, this rank's rows of it."""
+        if self.dp_enabled:
+            batch = par.shard_batch(batch)
+        return to_device(batch, self.device)
 
     def load_checkpoint(self, tag: str) -> None:
         path = self.path_to_save / f"{tag}.ckpt"
@@ -377,15 +441,10 @@ class Trainer:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    import sys
+    """``python -m dfine_tpu_torch.apps.train``, whose ``main`` this is."""
+    from ..apps.train import main as app_main
 
-    from ..config import cli_config
-
-    cfg = cli_config(argv if argv is not None else sys.argv[1:])
-    trainer = Trainer(cfg)
-    trainer.train()
-    if trainer.failure is not None:  # the final eval ran; the run still failed
-        raise trainer.failure
+    app_main(argv)
 
 
 if __name__ == "__main__":

@@ -272,12 +272,13 @@ STATE_FORMAT = "dfine_tpu_torch.train_state"
 
 
 def state_dict_of(state, generator: Optional[torch.Generator] = None,
-                  meta: Optional[Dict] = None) -> Dict:
+                  meta: Optional[Dict] = None, rank_generators: Optional[list] = None) -> Dict:
     """The whole of a ``train.train_step.TrainState`` as one dict of CPU
     tensors and plain values: model and EMA (parameters and buffers), the
     step, AdamW's moments and steps, the optimizer's count, its micro-step
     and the running mean of an unfinished accumulation, and the state of the
-    CDN noise's generator."""
+    CDN noise's generator (under data parallelism also every rank's, in
+    ``rank_generators``)."""
     opt = state.optimizer
     index = {p: i for i, p in enumerate(opt.params)}
 
@@ -301,18 +302,30 @@ def state_dict_of(state, generator: Optional[torch.Generator] = None,
         "mini_step": int(opt.mini_step),
         "accum_mean": {index[p]: cpu(m) for p, m in opt._mean.items()},
         "generator": None if generator is None else generator.get_state().clone(),
+        "rank_generators": rank_generators,
     }
 
 
 def save_state(path: Union[str, Path], state, generator: Optional[torch.Generator] = None,
                meta: Optional[Dict] = None) -> int:
     """Write ``state_dict_of(...)`` to ``path`` (``torch.save``, written to
-    a temporary name, then renamed); returns its bytes."""
+    a temporary name, then renamed); returns its bytes. In a process group
+    every rank calls it: rank 0 writes, with every rank's generator state,
+    and the others wait at a barrier until it has (they return 0)."""
+    from ..parallel import dp as par
+
     path = Path(path)
-    tmp = path.with_name(path.name + ".tmp")
-    torch.save(state_dict_of(state, generator, meta), tmp)
-    tmp.replace(path)
-    return path.stat().st_size
+    ranks = None
+    if par.process_count() > 1 and generator is not None:
+        ranks = par.gather_objects([generator.get_state()])
+    nbytes = 0
+    if par.is_main_process():
+        tmp = path.with_name(path.name + ".tmp")
+        torch.save(state_dict_of(state, generator, meta, ranks), tmp)
+        tmp.replace(path)
+        nbytes = path.stat().st_size
+    par.barrier("save_state")
+    return nbytes
 
 
 def read_state(path: Union[str, Path]) -> Dict:
@@ -335,7 +348,8 @@ def read_state(path: Union[str, Path]) -> Dict:
 def restore_state(path: Union[str, Path], state,
                   generator: Optional[torch.Generator] = None) -> Dict:
     """Fill ``state`` (and ``generator``) in place from ``save_state``'s
-    file; returns the file's meta."""
+    file; returns the file's meta. Under data parallelism each rank takes
+    its own generator state where the file holds one for its rank."""
     ck = read_state(path)
     state.model.load_state_dict(ck["model"], strict=True)
     state.ema.load_state_dict(ck["ema"], strict=True)
@@ -345,5 +359,9 @@ def restore_state(path: Union[str, Path], state,
     opt.count, opt.mini_step = ck["count"], ck["mini_step"]
     opt._mean = {opt.params[i]: m.to(opt.params[i].device) for i, m in ck["accum_mean"].items()}
     if generator is not None and ck["generator"] is not None:
-        generator.set_state(ck["generator"])
+        from ..parallel.dp import process_index
+
+        ranks = ck.get("rank_generators") or [ck["generator"]]
+        if process_index() < len(ranks):
+            generator.set_state(ranks[process_index()])
     return ck["meta"]

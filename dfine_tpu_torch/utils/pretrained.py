@@ -11,6 +11,9 @@
   ``~/.cache/dfine_tpu/weights``) where one was staged there by hand;
   otherwise the weights are unavailable and training starts from random
   init. Nothing is ever downloaded.
+
+In a process group rank 0 resolves first and the others wait for it at a
+barrier (pretrained.py:44-65), then resolve quietly.
 """
 
 from __future__ import annotations
@@ -37,7 +40,17 @@ def resolve_pretrained(spec: Optional[str], model_name: str, logger=None) -> Opt
     module doc)."""
     if not spec:
         return None
-    log = logger.info if logger is not None else print
+    from ..parallel import dp as par
+
+    if par.is_main_process():
+        resolved = _resolve(spec, model_name, logger.info if logger is not None else print)
+        par.barrier("pretrained")
+        return resolved
+    par.barrier("pretrained")
+    return _resolve(spec, model_name, lambda msg: None)
+
+
+def _resolve(spec: str, model_name: str, log) -> Optional[Path]:
     if spec == "auto" or spec.startswith(("http://", "https://")):
         name = (_STAGE1_NAME.format(arch=SIZE_TO_ARCH.get(model_name, "B0")) if spec == "auto"
                 else spec.rsplit("/", 1)[-1])

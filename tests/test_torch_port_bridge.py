@@ -100,17 +100,20 @@ ENTRY_POINTS = tuple(f"dfine_tpu_torch.{m}" for m in (
     "apps.train", "apps.export", "apps.infer", "apps.bench", "apps.check_errors", "apps.quant",
     "apps.test_batching", "apps.demo", "etl.split", "etl.coco_yolo", "etl.mask_tools",
     "etl.preprocess"))
+# data parallelism: torch (torch.distributed) and the standard library only
+PARALLEL = ("dfine_tpu_torch.parallel", "dfine_tpu_torch.parallel.dp")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (every entry point of
-    ENTRY_POINTS included) loads nothing of FORBIDDEN and nothing of LAZY."""
+    ENTRY_POINTS and the modules of PARALLEL included) loads nothing of
+    FORBIDDEN and nothing of LAZY."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dfine_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dfine_tpu_torch.__path__, "
         "'dfine_tpu_torch.')]\n"
-        f"missing = set({ENTRY_POINTS!r}) - set(names)\n"
+        f"missing = set({ENTRY_POINTS + PARALLEL!r}) - set(names)\n"
         "assert not missing, missing\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -139,3 +142,9 @@ def test_port_sources_name_no_forbidden_import():
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
+    stdlib = set(sys.stdlib_module_names)
+    for name in PARALLEL:
+        path = REPO / Path(*name.split(".")).with_suffix(".py")
+        if not path.exists():
+            path = path.with_suffix("") / "__init__.py"
+        assert set(_imported_roots(path)) <= stdlib | {"torch", "__future__"}, name

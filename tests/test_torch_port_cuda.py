@@ -381,3 +381,111 @@ def test_int_mm_is_the_exact_integer_product(cuda, m):
     out = _int_product(a.to(cuda), b.to(cuda))
     assert out.dtype == torch.int32
     assert torch.equal(out.cpu().long(), a.long() @ b.long().T)
+
+
+_DP_RANK = r"""
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+
+from dfine_tpu_torch.models.dfine import build_model
+from dfine_tpu_torch.models.layers import set_bn_axis
+from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from dfine_tpu_torch.parallel import dp as par
+from dfine_tpu_torch.train.criterion import CriterionConfig
+from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
+from dfine_tpu_torch.train.train_step import TrainState, make_train_step
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+backend = par.init_multihost(f"localhost:{{port}}", 2, rank, device="cuda:0")
+model = build_model("n", 5, False, device="cuda", cfg_overrides={overrides!r})
+state = TrainState.create(model, build_optimizer(model, OptimConfig()))
+step = par.make_dp_train_step(make_train_step(CriterionConfig(num_classes=5, losses={losses!r}),
+                                              compute_dtype=torch.float32, axis_name="dp"))
+batch = torch.load(f"{{out}}/batch.pt")
+set_bn_axis("dp")
+reset_launch_counts()
+_, m = step(state, par.shard_batch({{"images": batch["images"].cuda(),
+                                     "targets": {{k: v.cuda() for k, v in batch["targets"].items()}}}}))
+torch.cuda.synchronize()
+torch.save({{"backend": backend, "counts": launch_counts(),
+             "metrics": {{k: float(v) for k, v in m.items()}},
+             "model": {{k: v.cpu() for k, v in state.model.state_dict().items()}}}},
+           f"{{out}}/rank{{rank}}.pt")
+par.shutdown()
+"""
+
+
+def test_dp_step_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Two ranks on cuda:0 (gloo: the backend choice sees one device UUID
+    twice), n detect at 320 px, fp32, SyncBN, 2 x 2 rows, against the
+    single-process step on the 4 rows (SyncBN's formula over the whole
+    batch): loss rtol 1e-5, grad norm rtol 1e-4, every parameter element
+    within 2 lr + 2e-6 and at most 0.5 % beyond rtol 1e-4 / atol 1e-5
+    (tests/test_torch_port_dp.py's rules); both ranks bit-equal; each rank
+    launched the sampling kernel 3 times and the scatter 6 times."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.models.layers import set_bn_axis
+    from dfine_tpu_torch.train.criterion import CriterionConfig
+    from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from dfine_tpu_torch.train.train_step import TrainState, make_train_step
+
+    overrides, losses = (("decoder.num_denoising", 0),), ("vfl", "boxes")
+    rng = np.random.default_rng(4)
+    valid = np.asarray([[1, 1, 1, 0], [1, 1, 0, 0], [1, 0, 0, 0], [1, 1, 1, 1]], bool)
+    batch = {"images": torch.from_numpy(rng.uniform(size=(4, 3, 320, 320)).astype(np.float32)),
+             "targets": {"labels": torch.from_numpy(rng.integers(0, 5, (4, 4))),
+                         "boxes": torch.from_numpy(rng.uniform(0.25, 0.6, (4, 4, 4))
+                                                   .astype(np.float32)),
+                         "valid": torch.from_numpy(valid)}}
+    torch.save(batch, tmp_path / "batch.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = _DP_RANK.format(repo=str(Path(__file__).resolve().parents[1]), overrides=overrides,
+                           losses=losses)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port), str(tmp_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-3000:] for _, err in outs]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+
+    model = build_model("n", 5, False, device=cuda, cfg_overrides=overrides)
+    state = TrainState.create(model, build_optimizer(model, OptimConfig()))
+    step = make_train_step(CriterionConfig(num_classes=5, losses=losses),
+                           compute_dtype=torch.float32)
+    set_bn_axis("dp")
+    try:
+        _, m = step(state, {"images": batch["images"].to(cuda),
+                            "targets": {k: v.to(cuda) for k, v in batch["targets"].items()}})
+    finally:
+        set_bn_axis(None)
+    ref = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        assert r["counts"] == {"ms_deform_attn_fwd": 3, "rows_scatter_add": 6,
+                               "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+        np.testing.assert_allclose(r["metrics"]["loss"], float(m["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(r["metrics"]["grad_norm"], float(m["grad_norm"]), rtol=1e-4)
+        far, n_el = 0, 0
+        for k, v in r["model"].items():
+            if k.endswith("num_batches_tracked"):
+                assert torch.equal(v, ref[k]), k
+            elif k.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(v.numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-5)
+            else:
+                assert (v - ref[k]).abs().max() <= 2 * 2e-5 + 2e-6, k
+                far += int((~torch.isclose(v, ref[k], rtol=1e-4, atol=1e-5)).sum())
+                n_el += v.numel()
+        assert far <= 0.005 * n_el, (far, n_el)
+    for k, v in ranks[0]["model"].items():
+        assert torch.equal(v, ranks[1]["model"][k]), k

@@ -1,7 +1,8 @@
 """The port's trainer entry point on the CPU, n det+seg at 320 px on an
 8-image synthetic dataset (6 train, 2 val): a 2-epoch run and its files, an
 exact resume, serving a trainer checkpoint, the offline pretrained weights,
-and the raises (no CUDA, ``train.dp``, a JAX orbax state). Its eval against
+``train.dp`` with one process, and the raises (no CUDA, a JAX orbax
+state). Its eval against
 the JAX composition: ``test_torch_port_trainer_eval.py``."""
 
 import json
@@ -222,11 +223,29 @@ def test_cli_exits_nonzero_on_a_crash(root):
 
 
 def test_dp_and_no_cuda_raise(root):
+    """``train.dp.enabled`` with one process: data parallelism is off and the
+    log says so; ``train.dp.multihost`` with one process joins a one-rank
+    group (gloo on the CPU) and stays off too. Without CUDA the trainer and
+    the entry point raise."""
+    import socket
+
+    from dfine_tpu_torch.parallel import dp as par
     from dfine_tpu_torch.train.trainer import Trainer
 
-    for key in ("train.dp.enabled", "train.dp.multihost.enabled"):
-        with pytest.raises(NotImplementedError, match=key):
-            Trainer(_config(root, "dp", **{key: True}), device="cpu")
+    trainer = Trainer(_config(root, "dp", **{"train.dp.enabled": True}), device="cpu")
+    assert not trainer.dp_enabled and trainer.world == 1
+    assert "data parallelism is off" in (root / "dp" / "train_log.txt").read_text()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    try:
+        mh = Trainer(_config(root, "dp_mh", **{
+            "train.dp.enabled": True, "train.dp.multihost.enabled": True,
+            "train.dp.multihost.coordinator_address": f"localhost:{port}",
+            "train.dp.multihost.num_processes": 1}), device="cpu")
+        assert par.backend() == "gloo" and mh.world == 1 and not mh.dp_enabled
+    finally:
+        par.shutdown()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(_config(root, "card"))
