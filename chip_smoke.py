@@ -136,6 +136,36 @@ The apps, on the trainer's experiment (``phase_apps``):
     dataset. Each app's launch counts are set to 0 before it and read
     after; the phase's seconds are printed.
 
+The widened decoder tail, extra pyramid levels and the flat optimizer (run
+after 12, before 13, beside the other train phases):
+
+21. wide_tail: m detect with ``decoder.layer_scale`` 2 past ``eval_idx`` 1
+    (layers 2-3 at d = 512, head dim 64). Each kernel at D = 64 against its
+    plain version (the sampling kernel, bf16 and f32, on the cases of
+    ``tests/test_torch_port_deform_cases.py`` and at the wide layer's train
+    shape; the three scatters at the train step's shapes with
+    ``index_add_`` beside them and on the cases of
+    ``tests/test_torch_port_scatter_cases.py``), timed beside their plain
+    versions and bounds; the wide train step (bf16, batch 8): 2 warm-up and
+    10 timed steps, p50/p90, device ms, peak memory, launches by kernel and
+    head dim (2 + 2 sampling, 6 + 6 scatters a step); the three scatters
+    and ``index_add_`` on one more step's own D = 64 inputs; ``TorchModel``
+    serving the trained weights (plain and deploy-fused: eval stops at
+    ``eval_idx``, 2 sampling launches a frame); the first step in fp32 card
+    against CPU (``train_parity``'s rules);
+22. extra_level: m det+seg with a fourth level (stride 64, points (3, 6,
+    3, 3)): ``TorchModel`` serving 12 frames (4 launches a frame over 4
+    levels, the served sampling inputs against the plain version), one
+    train step at batch 8 (4 + 16 launches), the fp32 model card against
+    CPU, the 4-level ``AOTModel`` replayed against eager (fp32) and
+    deploy-fused in bf16;
+23. flat_optim: ``build_optimizer(flat=True)`` against the four-group
+    ``Optimizer`` on path 21's model with the freeze mask, per-group peaks
+    and ``b_accum_steps`` 2, from the same gradients: parameters and EMA
+    after 3 optimizer steps within FLAT_ATOL; then each one's optimizer
+    tail (clip, AdamW, EMA) timed in the same call, with its device
+    activities.
+
 The first line says which optional packages (PIL, matplotlib, yaml,
 imageio, torchvision) the card's Python imports. Then one
 ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -297,6 +327,20 @@ DP_STEPS, DP_TRAINER_BATCH = 5, 4
 DP_OVERRIDES, DP_LOSSES = (("decoder.num_denoising", 0),), ("vfl", "boxes")
 DP_LOSS_RTOL, DP_GNORM_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-5, 1e-4, 1e-4, 1e-5
 DP_LR, DP_FAR_SHARE = 2e-5, 0.005
+# the widened decoder tail (path A): m detect with layer_scale 2 past eval_idx
+# 1, so layers 2-3 run at d = 512 (head dim 64) in training, and eval runs
+# layers 0-1 only
+WIDE_OVERRIDES = (("decoder.layer_scale", 2), ("decoder.eval_idx", 1))
+WIDE_HEAD_DIM, WIDE_LAYERS, WIDE_EVAL_LAYERS = 64, 2, 2
+# a fourth level (path B): m det+seg, stride 64 (10 x 10 at 640 px), 15 points
+EXTRA_LEVELS = 4
+EXTRA_OVERRIDES = (("decoder.num_levels", EXTRA_LEVELS), ("decoder.num_points", (3, 6, 3, 3)))
+# the flat optimizer (path C) against the four-group one from the same
+# gradients: 3 optimizer steps of 2 micro-steps; each parameter and EMA
+# element within FLAT_ATOL, a twentieth of the first steps' learning rate
+# (2e-5) and far above the f32 rounding of an update (tests/
+# test_torch_port_flat_optim.py holds the same limit on the CPU)
+FLAT_STEPS, FLAT_ATOL = 3, 1e-6
 # packages the port may use where present, never needs: the run reports which import
 OPTIONAL_PACKAGES = ("PIL", "matplotlib", "yaml", "imageio", "torchvision")
 
@@ -662,11 +706,14 @@ def phase_deform_fwd(res):
           "shape": f"m@640 B={TRAIN_BATCH} Q={TRAIN_QUERIES} bf16 value", **res["deform_train"]})
 
 
-def _kernels_of(fn) -> list:
-    """The device activities of one call of ``fn`` (torch.profiler), by name.
-    A profiler window in which CUPTI recorded no device activity at all (it
-    can drop a whole window when windows follow each other closely) is taken
-    again, after a pause, up to six windows."""
+def _kernels_of(fn, calls: int = 10) -> list:
+    """The device activities of one call of ``fn`` (torch.profiler), by name:
+    each activity's count in a window of ``calls`` calls over ``calls``. A
+    profiler window in which CUPTI recorded no device activity at all is
+    taken again, after a pause of half a second, up to six windows; an empty
+    list if every window was dropped. (On the H100, windows of one short
+    call late in a run were dropped six times in a row, while windows of
+    many calls were kept.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,22 +721,26 @@ def _kernels_of(fn) -> list:
     torch.cuda.synchronize()
     for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        names = sorted(e.key for e in _device_rows(prof) for _ in range(e.count))
+        names = sorted(e.key for e in _device_rows(prof) for _ in range(round(e.count / calls)))
         if names:
             break
-        time.sleep(0.1)
+        time.sleep(0.5)
     return names
 
 
-def _scatter(res, name):
+def _scatter(res, name, d=HEAD_DIM):
     """A row scatter-add kernel against its plain version at the train
     step's shapes (f32 payload for ``rows_scatter_add``, bf16 for ``_mxu``
-    and ``_tiled``), with the edge cases, the device activities of one call
-    and the times of one backward. ``_tiled`` is also held bit for bit
-    against the plain version on the CPU and against its own second run;
-    for ``_mxu`` the script reports whether two runs are bit-equal."""
+    and ``_tiled``) at head dim ``d``, with the edge cases, the device
+    activities of one call and the times of one backward. ``_tiled`` is also
+    held bit for bit against the plain version on the CPU and against its
+    own second run; for ``_mxu`` the script reports whether two runs are
+    bit-equal. At ``HEAD_DIM`` also head dim 16 and the refusal of D = 8;
+    the results go to ``res[name]``, at another ``d`` to
+    ``res[f"{name}_d{d}"]``."""
     import torch
 
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
@@ -715,7 +766,7 @@ def _scatter(res, name):
     max_err, levels = 0.0, []
     for (h, w), p in zip(M_SHAPES, M_POINTS):
         hw, n = h * w, TRAIN_QUERIES * p * 4
-        idx, contrib = inputs(hw, n, HEAD_DIM)
+        idx, contrib = inputs(hw, n, d)
         out = fn(idx, contrib, hw)
         ref = plain(idx, contrib, hw)
         torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
@@ -739,12 +790,12 @@ def _scatter(res, name):
         # padded flat output whose pad row absorbs the dropped entries
         safe = torch.where(idx >= 0, idx, hw).long()
         flat = (torch.arange(r, device=dev)[:, None] * (hw + 1) + safe).reshape(-1)
-        src = contrib.float().reshape(-1, HEAD_DIM)
+        src = contrib.float().reshape(-1, d)
         parts = {
             **timings("", lambda: fn(idx, contrib, hw), 50),
             **timings("plain_", lambda: plain(idx, contrib, hw), 20),
             **timings("library_", lambda: torch.zeros(
-                (r * (hw + 1), HEAD_DIM), device=dev).index_add_(0, flat, src), 50)}
+                (r * (hw + 1), d), device=dev).index_add_(0, flat, src), 50)}
         level["ms"] = parts["ms"]
         for key_, val in parts.items():
             if key_.endswith("ms") and val is not None:
@@ -752,34 +803,41 @@ def _scatter(res, name):
             elif not key_.endswith("ms"):
                 tot[key_] = val
         tot["bytes"] += (idx.numel() * 4 + contrib.numel() * contrib.element_size()
-                         + r * hw * HEAD_DIM * 4)
-        tot["flops"] += int((idx >= 0).sum().item()) * HEAD_DIM
+                         + r * hw * d * 4)
+        tot["flops"] += int((idx >= 0).sum().item()) * d
         levels.append(level)
     # one call is one kernel: no fill of the output, no sort or gather around it
+    # (at another D the wrapper launches alike; tests/test_torch_port_cuda.py
+    # checks each D too, so a profile whose windows were all dropped is
+    # reported there as None, not failed)
     activities = _kernels_of(lambda: fn(idx, contrib, hw))
-    if len(activities) != 1 or "rows_scatter_add" not in activities[0]:
+    if not activities and d != HEAD_DIM:
+        activities = None
+    elif len(activities) != 1 or "rows_scatter_add" not in activities[0]:
         raise AssertionError(f"{name}: one call ran {activities}, want its kernel alone")
-    # head dim 16 (the n model): the first level of n@640, and an unsupported D raises
-    (h, w), p = N_SHAPES[0], N_POINTS[0]
-    idx, contrib = inputs(h * w, TRAIN_QUERIES * p * 4, 16)
-    torch.testing.assert_close(fn(idx, contrib, h * w), plain(idx, contrib, h * w),
-                               atol=atol, rtol=rtol)
-    if tiled and not on_cpu(idx, contrib, h * w):
-        raise AssertionError("rows_scatter_add_tiled at D = 16: not bit-equal to the CPU")
-    try:
-        fn(idx, contrib[..., :8].contiguous(), h * w)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError(f"{name} took D = 8")
+    if d == HEAD_DIM:
+        # head dim 16 (the n model): the first level of n@640, and an unsupported D raises
+        (h, w), p = N_SHAPES[0], N_POINTS[0]
+        idx, contrib = inputs(h * w, TRAIN_QUERIES * p * 4, 16)
+        torch.testing.assert_close(fn(idx, contrib, h * w), plain(idx, contrib, h * w),
+                                   atol=atol, rtol=rtol)
+        if tiled and not on_cpu(idx, contrib, h * w):
+            raise AssertionError("rows_scatter_add_tiled at D = 16: not bit-equal to the CPU")
+        try:
+            fn(idx, contrib[..., :8].contiguous(), h * w)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name} took D = 8")
     bound_ms, bound_by = bound(tot["bytes"], tot["flops"])
-    res[name] = {"max_abs_err": max_err, **{k: v for k, v in tot.items() if "ms" in k},
-                 "bound_ms": bound_ms, "bound_by": bound_by, "levels": levels,
-                 "atol": atol, "rtol": rtol, "activities_per_call": activities}
-    emit({"phase": f"kernel_{name}",
-          "shape": f"m@640 train step, B={TRAIN_BATCH}, Q={TRAIN_QUERIES}, "
+    key = name if d == HEAD_DIM else f"{name}_d{d}"
+    res[key] = {"max_abs_err": max_err, **{k: v for k, v in tot.items() if "ms" in k},
+                "bound_ms": bound_ms, "bound_by": bound_by, "levels": levels,
+                "atol": atol, "rtol": rtol, "activities_per_call": activities}
+    emit({"phase": f"kernel_{key}",
+          "shape": f"m@640 train step, B={TRAIN_BATCH}, Q={TRAIN_QUERIES}, D={d}, "
                    f"{'f32' if f32 else 'bf16'} payload: one backward = 3 calls, times summed",
-          **res[name]})
+          **res[key]})
 
 
 def phase_scatter(res):
@@ -1432,12 +1490,13 @@ def lab_terms(model, out: dict):
             h.remove()
 
 
-def _card_vs_cpu_step(res, phase, init, seg, n_seeds=1):
+def _card_vs_cpu_step(res, phase, init, seg, n_seeds=1, overrides=()):
     """The parity steps at the first ``n_seeds`` batch seeds that select
-    alike; every seed's readings are printed before a failure is raised."""
+    alike; every seed's readings are printed before a failure is raised.
+    ``overrides``: the model's configuration, as ``build_model`` takes it."""
     from dfine_tpu_torch.models.dfine import build_model
 
-    cpu_model = build_model(SIZE, NUM_CLASSES, seg, device="cpu")
+    cpu_model = build_model(SIZE, NUM_CLASSES, seg, device="cpu", cfg_overrides=overrides)
     cpu_model.load_state_dict(init)
     noise = _noise(PARITY_BATCH, seed=4)
     seeds = []
@@ -3496,6 +3555,548 @@ def phase_apps(res):
         raise AssertionError("apps: " + "; ".join(failures))
 
 
+# ------------------------------------------ the widened tail, extra levels --
+
+
+@contextlib.contextmanager
+def launch_widths(acc: dict):
+    """Count, in ``acc[(kernel, D)]``, every call of the sampling op and of
+    the value-gradient scatter chosen by ``set_deform_bwd`` made while the
+    context is open, by the head dim of its value; each call still goes on
+    to its kernel (and its wrapper's own count)."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    op, scatters, default = tda.ms_deform_attn_op, dict(tda._SCATTERS), tda.rows_scatter_add
+
+    def sampling(value, flat, loc, att, pts):
+        key = ("ms_deform_attn_fwd", int(value.shape[3]))
+        acc[key] = acc.get(key, 0) + 1
+        return op(value, flat, loc, att, pts)
+
+    def counted_scatter(fn):
+        def call(idx, contrib, hw):
+            key = (fn.__name__, int(contrib.shape[-1]))
+            acc[key] = acc.get(key, 0) + 1
+            return fn(idx, contrib, hw)
+        return call
+
+    shims = {k: counted_scatter(fn) for k, fn in scatters.items()}
+    # the backward picks the f32 payload by the identity of rows_scatter_add
+    tda.ms_deform_attn_op, tda.rows_scatter_add = sampling, shims["pallas"]
+    tda._SCATTERS.update(shims)
+    try:
+        yield acc
+    finally:
+        tda.ms_deform_attn_op, tda.rows_scatter_add = op, default
+        tda._SCATTERS.update(scatters)
+
+
+def _by_width(acc: dict) -> dict:
+    return {f"{k}_d{d}": n for (k, d), n in sorted(acc.items())}
+
+
+def _tests_on_path() -> None:
+    """The tests' shared input cases (numpy only) importable."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
+def _deform_cases_checks(dev) -> list:
+    """The sampling kernel against its plain version on the cases shared
+    with the CPU tests (``tests/test_torch_port_deform_cases.py``: pixel
+    edges, one level, head dims 16 and 64, four levels), bf16 and f32."""
+    import torch
+
+    _tests_on_path()
+    from test_torch_port_deform_cases import DEFORM_CASES, deform_case
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+
+    checks = []
+    for case in DEFORM_CASES:
+        value, shapes, loc, att, pts = deform_case(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            v = torch.from_numpy(value).to(dev, dtype)
+            l, a = torch.from_numpy(loc).to(dev), torch.from_numpy(att).to(dev)
+            err = (ms_deform_attn_fwd(v, shapes, l, a, pts)
+                   - ms_deform_attn_fwd_plain(v, shapes, l, a, pts)).abs().max().item()
+            checks.append({"case": case, "d": int(value.shape[-1]),
+                           "value": str(dtype).split(".")[1], "max_abs_err": err})
+            if not err <= FWD_TOL:
+                raise AssertionError(f"deform fwd case {case} {dtype}: max err {err}")
+    return checks
+
+
+def _scatter_cases_checks(dev, d) -> list:
+    """The three scatters at head dim ``d`` on the edge cases shared with
+    the CPU tests (``tests/test_torch_port_scatter_cases.py``): the f32 one
+    within SCATTER_ATOL/RTOL of its plain version, ``_mxu`` within the bf16
+    tolerance (atol 1e-3, rtol 1e-4 where a destination sums hundreds of
+    entries, as tests/test_torch_port_cuda.py holds it), ``_tiled`` bit for
+    bit against its plain version on the CPU."""
+    import torch
+
+    _tests_on_path()
+    from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
+
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    checks = []
+    for case in EDGE_CASES:
+        idx_np, contrib_np, hw = scatter_case(case, d)
+        idx = torch.from_numpy(idx_np).to(dev)
+        contrib = torch.from_numpy(contrib_np).to(dev)
+        out = sr.rows_scatter_add(idx, contrib, hw)
+        torch.testing.assert_close(out, sr.rows_scatter_add_plain(idx, contrib, hw),
+                                   atol=SCATTER_ATOL, rtol=SCATTER_RTOL)
+        many = case in ("clustered", "dense_duplicates")
+        mxu = sr.rows_scatter_add_mxu(idx, contrib, hw)
+        torch.testing.assert_close(mxu, sr.rows_scatter_add_bf16_plain(idx, contrib, hw),
+                                   atol=1e-3 if many else BF16_SCATTER_ATOL,
+                                   rtol=1e-4 if many else BF16_SCATTER_RTOL)
+        tiled = sr.rows_scatter_add_tiled(idx, contrib, hw).cpu()
+        if not torch.equal(tiled, sr.rows_scatter_add_bf16_plain(idx.cpu(), contrib.cpu(), hw)):
+            raise AssertionError(f"rows_scatter_add_tiled at D = {d}, case {case}: "
+                                 "not bit-equal to the CPU")
+        checks.append({"case": case, "d": d,
+                       "f32_max_abs_err": float((out - sr.rows_scatter_add_plain(
+                           idx, contrib, hw)).abs().max()),
+                       "mxu_max_abs_err": float((mxu - sr.rows_scatter_add_bf16_plain(
+                           idx, contrib, hw)).abs().max()), "tiled_bit_equal_cpu": True})
+    return checks
+
+
+def _wide_kernels(res):
+    """Each kernel at head dim 64 (the wide layers' value) against its plain
+    version: the sampling kernel, bf16 and f32, on the shared cases and at
+    the wide layer's train shape (timed beside its plain version and its
+    bound); the three scatters at the train step's shapes (``_scatter`` at
+    D = 64: times, ``index_add_``, bound) and on the shared edge cases."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
+
+    dev = torch.device(DEV)
+    checks = _deform_cases_checks(dev)
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        v, l, a = _deform_inputs(dev, TRAIN_BATCH, WIDE_HEAD_DIM, M_SHAPES, M_POINTS, dtype, 8,
+                                 q=TRAIN_QUERIES)
+        err = (ms_deform_attn_fwd(v, M_SHAPES, l, a, M_POINTS)
+               - ms_deform_attn_fwd_plain(v, M_SHAPES, l, a, M_POINTS)).abs().max().item()
+        checks.append({"train_shape": True, "d": WIDE_HEAD_DIM,
+                       "value": str(dtype).split(".")[1], "max_abs_err": err})
+        errs.append(err)
+        if not err <= FWD_TOL:
+            raise AssertionError(f"deform fwd D = 64 at the train shape {dtype}: max err {err}")
+    # timed as the wide layers run it: bf16 value, locations in the map
+    v, l, a = _deform_inputs(dev, TRAIN_BATCH, WIDE_HEAD_DIM, M_SHAPES, M_POINTS,
+                             torch.bfloat16, 6, 0.0, 1.0, q=TRAIN_QUERIES)
+    bound_ms, bound_by = _deform_bound(v, l, a)
+    res["deform_d64"] = {
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        **timings("", lambda: ms_deform_attn_fwd(v, M_SHAPES, l, a, M_POINTS), 100),
+        **timings("plain_", lambda: ms_deform_attn_fwd_plain(v, M_SHAPES, l, a, M_POINTS), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "value_mb": v.numel() * v.element_size() / 1e6, "checks": checks}
+    emit({"phase": "kernel_ms_deform_attn_fwd_d64",
+          "shape": f"m@640 wide layer: B={TRAIN_BATCH} Q={TRAIN_QUERIES} D={WIDE_HEAD_DIM} "
+                   "bf16 value", **res["deform_d64"]})
+    del v, l, a
+    for name in ("rows_scatter_add", "rows_scatter_add_mxu", "rows_scatter_add_tiled"):
+        _scatter(res, name, d=WIDE_HEAD_DIM)
+    res["scatter_cases_d64"] = _scatter_cases_checks(dev, WIDE_HEAD_DIM)
+    emit({"phase": "scatter_cases_d64", "checks": res["scatter_cases_d64"]})
+    torch.cuda.empty_cache()
+
+
+def _wide_in_situ(state, step, batch, gen) -> dict:
+    """The three scatters and ``index_add_`` on the inputs that one more
+    wide train step gives the default backward at D = 64 (the wide layers'
+    6 calls): ``rows_scatter_add`` against its plain version, ``_mxu``
+    against the bf16 plain version (atol 1e-3, rtol 1e-4: hot pixels sum
+    hundreds of entries), ``_tiled`` bit for bit against the CPU; ms summed
+    over the step by CUDA events."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    with captured_scatters([]) as calls:
+        step(state, batch, gen)
+        sync()
+    wide = [c for c in calls if c[1].shape[-1] == WIDE_HEAD_DIM]
+    if len(calls) != DECODER_LAYERS * len(M_SHAPES) or len(wide) != WIDE_LAYERS * len(M_SHAPES):
+        raise AssertionError(f"wide in situ: {len(calls)} scatter calls, {len(wide)} at D = 64")
+    total = dict.fromkeys(("rows_scatter_add", "rows_scatter_add_mxu", "rows_scatter_add_tiled",
+                           "library"), 0.0)
+    err = {"rows_scatter_add": 0.0, "rows_scatter_add_mxu": 0.0}
+    for idx, contrib, hw in wide:
+        r, d = idx.shape[0], contrib.shape[-1]
+        c16 = contrib.bfloat16()
+        safe = torch.where((idx >= 0) & (idx < hw), idx, hw).long()
+        flat = (torch.arange(r, device=DEV)[:, None] * (hw + 1) + safe).reshape(-1)
+        payload = {"rows_scatter_add": contrib, "rows_scatter_add_mxu": c16,
+                   "rows_scatter_add_tiled": c16}
+        for n, x in payload.items():
+            total[n] += cuda_ms(lambda n=n, x=x: getattr(sr, n)(idx, x, hw), 20)
+        total["library"] += cuda_ms(lambda: torch.zeros((r * (hw + 1), d), device=DEV)
+                                    .index_add_(0, flat, contrib.reshape(-1, d)), 20)
+        out, ref = sr.rows_scatter_add(idx, contrib, hw), sr.rows_scatter_add_plain(idx, contrib,
+                                                                                   hw)
+        torch.testing.assert_close(out, ref, atol=SCATTER_ATOL, rtol=SCATTER_RTOL)
+        err["rows_scatter_add"] = max(err["rows_scatter_add"], float((out - ref).abs().max()))
+        out, ref = sr.rows_scatter_add_mxu(idx, c16, hw), sr.rows_scatter_add_bf16_plain(idx, c16,
+                                                                                         hw)
+        torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-4)
+        err["rows_scatter_add_mxu"] = max(err["rows_scatter_add_mxu"],
+                                          float((out - ref).abs().max()))
+        if not torch.equal(sr.rows_scatter_add_tiled(idx, c16, hw).cpu(),
+                           sr.rows_scatter_add_bf16_plain(idx.cpu(), c16.cpu(), hw)):
+            raise AssertionError(f"wide in situ, hw {hw}: rows_scatter_add_tiled not bit-equal")
+    return {"ms_per_step": total, "max_abs_err": err, "calls": len(wide)}
+
+
+def phase_wide_tail(res):
+    """Path (A): D-FINE-m detect with ``decoder.layer_scale`` 2 past
+    ``eval_idx`` 1 (layers 2-3 at d = 512, FFN 2048, head dim 64). The
+    kernels at D = 64 against their plain versions; then the train step
+    (bf16, batch 8, G = 100): TRAIN_WARMUP steps, TRAIN_STEPS timed with
+    their launches by kernel and head dim (2 + 2 sampling, 6 + 6 scatter
+    launches a step), p50/p90, device ms and idle share of one step, peak
+    memory; the scatters on one more step's own D = 64 inputs; the first
+    step in fp32 card against CPU (phase_train_parity's rules); and
+    ``TorchModel`` serving the trained weights from a ``.pth``, plain and
+    deploy-fused, eval stopping at ``eval_idx`` (2 sampling launches a frame,
+    all at D = 32)."""
+    import tempfile
+
+    import torch
+
+    from dfine_tpu_torch import TorchModel
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    _wide_kernels(res)
+
+    model = build_model(SIZE, NUM_CLASSES, False, device=DEV, cfg_overrides=WIDE_OVERRIDES)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    state, step = _train_setup(torch.bfloat16, model=model)
+    batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, gen)
+    sync()
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+            "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+    narrow = DECODER_LAYERS - WIDE_LAYERS
+    want_widths = {("ms_deform_attn_fwd", HEAD_DIM): narrow,
+                   ("ms_deform_attn_fwd", WIDE_HEAD_DIM): WIDE_LAYERS,
+                   ("rows_scatter_add", HEAD_DIM): narrow * len(M_SHAPES),
+                   ("rows_scatter_add", WIDE_HEAD_DIM): WIDE_LAYERS * len(M_SHAPES)}
+    times, per_step, widths, metrics = [], [], [], []
+    total = {k: 0 for k in want}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        acc = {}
+        with launch_widths(acc):
+            reset_launch_counts()  # the main path of this phase: one wide train step
+            t = time.perf_counter()
+            _, m = step(state, batch, gen)
+            sync()
+            times.append(time.perf_counter() - t)
+            counts = launch_counts()
+        per_step.append(counts)
+        widths.append(acc)
+        for k in total:
+            total[k] += counts[k]
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    res["wide_counts"] = total
+    res["wide_widths"] = {}
+    for acc in widths:
+        for k, n in acc.items():
+            res["wide_widths"][k] = res["wide_widths"].get(k, 0) + n
+    p50, p90 = percentiles(times)
+    finite = all(np.isfinite(list(m_.values())).all() for m_ in metrics)
+    first_wide = DECODER_LAYERS - WIDE_LAYERS
+    wide_layer = state.model.decoder.decoder.layers[first_wide]
+    wide_moved = sum(int(not torch.equal(init[f"decoder.decoder.layers.{first_wide}.{k}"]
+                                         .to(DEV), v))
+                     for k, v in wide_layer.named_parameters())
+    prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
+    emit({"phase": "wide_tail_train", "model": f"{SIZE} detect {IMG}px, layer_scale 2 past "
+          "eval_idx 1, bf16 autocast, fp32 params", "overrides": WIDE_OVERRIDES,
+          "batch": TRAIN_BATCH, "gt_slots": TRAIN_G, "steps": TRAIN_STEPS,
+          "step_p50_ms": p50, "step_p90_ms": p90, "peak_memory_gb": peak_gb,
+          "device_busy_ms": prof["device_busy_ms"],
+          "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50,
+          "metrics_first": metrics[0], "metrics_last": metrics[-1],
+          "launches_per_step": per_step[0], "launches_by_width_per_step": _by_width(widths[0]),
+          "launches_total": total, "launches_by_width_total": _by_width(res["wide_widths"]),
+          "wide_layer_params_moved": wide_moved, "losses_finite": finite})
+    emit({"phase": "wide_tail_train_profile", "what": "one wide train step", **prof})
+    failures = []
+    if any(c != want for c in per_step) or any(w != want_widths for w in widths) or not finite:
+        failures.append(f"counts {per_step[0]} (want {want}), by width {_by_width(widths[0])}, "
+                        f"finite {finite}")
+    if wide_moved != len(list(wide_layer.parameters())):
+        failures.append(f"only {wide_moved} tensors of the wide layer {first_wide} moved")
+
+    res["wide_in_situ"] = _wide_in_situ(state, step, batch, gen)
+    emit({"phase": "wide_tail_in_situ", "what": "the D = 64 scatter inputs of one wide train "
+          "step: ms summed over the step, by CUDA events; library = index_add_ of the f32 "
+          "payload", **res["wide_in_situ"]})
+
+    # TorchModel serving the trained weights (a reference-style .pth)
+    tmp = tempfile.TemporaryDirectory()
+    pth = os.path.join(tmp.name, "wide.pth")
+    torch.save({"model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}, pth)
+    del state, step, batch, model
+    torch.cuda.empty_cache()
+    frames = _frames(4)
+    served = {}
+    for deploy in (False, True):
+        tm = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.0, half=True,
+                        device=DEV, deploy=deploy, cfg_overrides=WIDE_OVERRIDES)
+        for f in frames:
+            tm(f)
+        acc, ts = {}, []
+        with launch_widths(acc):
+            reset_launch_counts()
+            for i in range(MODE_FRAMES):
+                t = time.perf_counter()
+                (out,) = tm(frames[i % len(frames)])
+                ts.append(time.perf_counter() - t)
+                if not (np.isfinite(out["boxes"]).all() and len(out["scores"])):
+                    failures.append(f"served (deploy {deploy}): no finite detections")
+            launches = launch_counts()["ms_deform_attn_fwd"]
+        q50, q90 = percentiles(ts)
+        served["deploy" if deploy else "plain"] = {
+            "call_p50_ms": q50, "call_p90_ms": q90, "deform_launches": launches,
+            "by_width": _by_width(acc)}
+        if acc != {("ms_deform_attn_fwd", HEAD_DIM): WIDE_EVAL_LAYERS * MODE_FRAMES}:
+            failures.append(f"served (deploy {deploy}) launches {_by_width(acc)}")
+        del tm
+    tmp.cleanup()
+    emit({"phase": "wide_tail_serving", "frames": MODE_FRAMES, "what": "TorchModel bf16 720p "
+          "BGR frames, weights of the wide train run, eval stops at eval_idx", **served})
+    try:
+        _card_vs_cpu_step(res, "wide_tail_parity", init, seg=False, overrides=WIDE_OVERRIDES)
+    except AssertionError as e:
+        failures.append(str(e))
+    if failures:
+        raise AssertionError("wide_tail: " + "; ".join(failures))
+
+
+def phase_extra_level(res):
+    """Path (B): D-FINE-m det+seg with a fourth level (``decoder.num_levels``
+    4, points (3, 6, 3, 3)): a stride-2 ConvBN over the last encoder map,
+    10 x 10 at 640 px. ``TorchModel`` serves MODE_FRAMES 720p frames (bf16,
+    4 sampling launches a frame, over 4 levels), the sampling kernel against
+    its plain version on one served frame's inputs; one train step at batch
+    8 (bf16, masks; 4 sampling and 16 scatter launches); the model fp32 on
+    the card against the CPU (phase_model's rule, weights re-drawn from seed
+    1); the 4-level ``AOTModel`` (fp32) replayed against the same model run
+    eagerly, then deploy-fused and served in bf16 (the extra level's
+    BatchNorm folded)."""
+    import torch
+
+    from dfine_tpu_torch import AOTModel, TorchModel
+    from dfine_tpu_torch.infer.torch_model import decode
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    failures, out = [], {}
+    frames = _frames(4)
+    tm = TorchModel(SIZE, None, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
+                    enable_mask_head=True, device=DEV, cfg_overrides=EXTRA_OVERRIDES)
+    levels = tm.model.decoder.decoder.layers[0].cross_attn.num_points_list
+    out["serving"] = _serve_timed(tm, frames, MODE_FRAMES)
+    checks = _served_deform_checks(tm, frames[:1])
+    out["served_deform_checks"] = checks
+    if out["serving"]["deform_launches"] != DECODER_LAYERS * MODE_FRAMES:
+        failures.append(f"served deform launches {out['serving']['deform_launches']}")
+    if (len(checks) != DECODER_LAYERS
+            or any(len(c["levels"]) != EXTRA_LEVELS for c in checks)
+            or max(c["max_abs_err"] for c in checks) > FWD_TOL):
+        failures.append(f"served sampling calls vs plain: {checks}")
+    del tm
+
+    model = build_model(SIZE, NUM_CLASSES, True, device=DEV, cfg_overrides=EXTRA_OVERRIDES)
+    state, step = _train_setup(torch.bfloat16, model=model, seg=True)
+    batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV, masks=True)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    step(state, batch, gen)  # warm-up
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    reset_launch_counts()  # the main path of this phase: one 4-level train step
+    t = time.perf_counter()
+    _, m = step(state, batch, gen)
+    sync()
+    step_ms = (time.perf_counter() - t) * 1e3
+    counts = launch_counts()
+    res["extra_counts"] = counts
+    moved = sum(int(not torch.equal(p0[k], v)) for k, v in model.named_parameters())
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+            "rows_scatter_add": DECODER_LAYERS * EXTRA_LEVELS,
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+    finite = all(np.isfinite(float(v)) for v in m.values())
+    extra_moved = not torch.equal(p0[f"decoder.input_proj.{EXTRA_LEVELS - 1}.conv.weight"],
+                                  model.decoder.input_proj[EXTRA_LEVELS - 1].conv.weight)
+    out["train"] = {"batch": TRAIN_BATCH, "step_ms": step_ms, "launches": counts,
+                    "metrics": {k: float(v) for k, v in m.items()}, "params_moved": moved,
+                    "n_params": len(p0), "extra_level_conv_moved": extra_moved}
+    if counts != want or not finite or not extra_moved or moved < 0.9 * len(p0):
+        failures.append(f"train: counts {counts} (want {want}), finite {finite}, "
+                        f"{moved} of {len(p0)} moved, extra level moved {extra_moved}")
+    del state, step, batch, model
+    torch.cuda.empty_cache()
+
+    cpu = build_model(SIZE, NUM_CLASSES, True, device="cpu", cfg_overrides=EXTRA_OVERRIDES)
+    randomize_(cpu, seed=1)
+    gpu = copy.deepcopy(cpu).to(DEV)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(1, 3, IMG, IMG))
+                         .astype(np.float32))
+    try:
+        out["fp32_card_vs_cpu"] = _card_vs_cpu(cpu, gpu, x, MODEL_ATOL, "extra_level fp32")
+    except AssertionError as e:
+        failures.append(str(e))
+    del cpu, gpu
+
+    aot = {}
+    for tag, half, deploy in (("fp32", False, False), ("bf16_deploy", True, True)):
+        model = AOTModel(SIZE, None, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=half,
+                         enable_mask_head=True, device=DEV, deploy=deploy,
+                         cfg_overrides=EXTRA_OVERRIDES)
+        if deploy:  # the extra level's BatchNorm folded into its conv, served in bf16
+            folded = isinstance(model.model.decoder.input_proj[-1].norm, torch.nn.Identity)
+            r = {"extra_level_bn_folded": folded, **_serve_timed(model, frames, MODE_FRAMES)}
+            if not folded:
+                failures.append("deploy: the extra level's BatchNorm was not folded")
+        else:
+            worst = {}
+            for f in frames[:2]:
+                with torch.inference_mode():
+                    xi = model._prepare_inputs(f)[0]
+                    g, e = model._predict(xi), decode(model.model, xi, model.num_top_queries)
+                for k in g:
+                    worst[k] = max(worst.get(k, 0.0),
+                                   float((g[k].float() - e[k].float()).abs().max()))
+            r = {"replay_vs_eager_max_abs": worst, "graph_atol": GRAPH_ATOL}
+            if max(worst.values()) > GRAPH_ATOL:
+                failures.append(f"AOTModel 4 levels: graph vs eager {worst} > {GRAPH_ATOL}")
+        aot[tag] = r
+        del model
+        torch.cuda.empty_cache()
+    out["aot"] = aot
+    emit({"phase": "extra_level", "model": f"{SIZE} det+seg {IMG}px, {EXTRA_LEVELS} levels",
+          "overrides": EXTRA_OVERRIDES, "points": list(levels), **out})
+    if failures:
+        raise AssertionError("extra_level: " + "; ".join(failures))
+
+
+def _tail_ms(opt, ema, model, ema_fn) -> dict:
+    """The optimizer tail (``opt.step()`` on the gradients in place, then
+    the EMA) timed by CUDA events, its device ms by the profiler, and its
+    device activities a call (None where every profiler window was
+    dropped)."""
+    def tail():
+        opt.step()
+        ema_fn(ema, model, max(opt.count, 1))
+
+    acts = _kernels_of(tail)
+    return {**timings("", tail, 20), "device_activities": len(acts) or None}
+
+
+def phase_flat_optim(res):
+    """Path (C): ``build_optimizer(flat=True)`` against the four-group
+    ``Optimizer`` on path (A)'s model with the trainer's l options (freeze
+    mask, per-group peaks, ``b_accum_steps`` 2), from the same gradients:
+    each micro-step's backward runs on the four-group model, and its
+    gradients and BatchNorm statistics are copied to the flat one. After 3
+    optimizer steps every parameter and EMA element within FLAT_ATOL.
+    Then the tail of one optimizer step (clip, AdamW, EMA) of each, timed in
+    this call, with its device activities."""
+    import torch
+
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.train.flat_optim import ema_update_flat
+    from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer, ema_update, freeze_mask
+
+    cfg = OptimConfig(per_group_max_lr=True, b_accum_steps=2)
+    model = build_model(SIZE, NUM_CLASSES, False, device=DEV, cfg_overrides=WIDE_OVERRIDES)
+    mask = freeze_mask(model, freeze_backbone_norm=True, freeze_stem=True)
+    state, step = _train_setup(torch.bfloat16, model=model, optim=cfg, update_mask=mask)
+    flat_model = copy.deepcopy(model)
+    flat_opt = build_optimizer(flat_model, cfg, flat=True)
+    flat_ema = copy.deepcopy(state.ema)
+    batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    opt = state.optimizer
+
+    # the four-group step, with the flat optimizer fed its gradients before it steps
+    group_step = opt.step
+
+    def both_steps():
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), flat_model.parameters()):
+                q.requires_grad_(p.requires_grad)
+                if p.grad is not None:
+                    q.grad.copy_(p.grad)
+            for b, c in zip(model.buffers(), flat_model.buffers()):
+                c.copy_(b)
+        flat_opt.step()
+        if flat_opt.mini_step == 0:
+            ema_update_flat(flat_ema, flat_model, flat_opt.count)
+        return group_step()
+
+    opt.step = both_steps
+    try:
+        for _ in range(FLAT_STEPS * cfg.b_accum_steps):
+            step(state, batch, gen)
+    finally:
+        opt.step = group_step
+    sync()
+    worst = {"params": 0.0, "ema": 0.0}
+    for part, a, b in (("params", model.state_dict(), flat_model.state_dict()),
+                       ("ema", state.ema.state_dict(), flat_ema.state_dict())):
+        for k, t in a.items():
+            if t.is_floating_point():
+                worst[part] = max(worst[part], float((t - b[k]).abs().max()))
+    counts_equal = (opt.count, opt.mini_step) == (flat_opt.count, flat_opt.mini_step)
+    frozen_same = all(torch.equal(model.get_parameter(k), flat_model.get_parameter(k))
+                      for k, keep in mask.items() if not keep)
+
+    # one optimizer step's tail of each, without accumulation, in this call
+    for p in model.parameters():
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    tails = {}
+    one = OptimConfig(per_group_max_lr=True)
+    group = build_optimizer(model, one)
+    tails["groups"] = _tail_ms(group, state.ema, model, ema_update)
+    flat = build_optimizer(flat_model, one, flat=True)
+    flat.grad_flat.copy_(torch.cat([p.grad.reshape(-1) if p.grad is not None
+                                    else torch.zeros(p.numel(), device=DEV)
+                                    for p in model.parameters()]))
+    tails["flat"] = _tail_ms(flat, flat_ema, flat_model, ema_update_flat)
+    tails["groups_again"] = _tail_ms(group, state.ema, model, ema_update)
+    n_params = sum(p.numel() for p in model.parameters())
+    res["flat_tails"] = tails
+    emit({"phase": "flat_optim", "model": f"{SIZE} detect {IMG}px, layer_scale 2, "
+          "freeze_mask(norms, stem), per_group_max_lr, b_accum_steps 2",
+          "optimizer_steps": FLAT_STEPS, "max_abs_diff": worst, "atol": FLAT_ATOL,
+          "counts_equal": counts_equal, "frozen_bit_equal": frozen_same,
+          "n_params": n_params, "param_tensors": len(list(model.parameters())),
+          "tail": tails})
+    del state, step, model, flat_model, flat_ema, batch
+    torch.cuda.empty_cache()
+    if max(worst.values()) > FLAT_ATOL or not counts_equal or not frozen_same:
+        raise AssertionError(f"flat_optim: {worst} beyond {FLAT_ATOL}, counts equal "
+                             f"{counts_equal}, frozen equal {frozen_same}")
+
+
 def in_situ_ms(res, kernel: str):
     """ms a launch of ``kernel`` in the default train step's profile (all its
     instances), or None where that step does not launch it."""
@@ -3510,6 +4111,18 @@ def dp_launches(res, name: str) -> dict:
     return {"world1_nccl_step": res["dp_world1_counts"][name],
             "gloo_rank_step": [c[name] for c in res["dp_gloo_counts"]],
             "trainer_rank_run": [c[name] for c in res["dp_trainer_counts"]]}
+
+
+def wide_launches(res, name: str) -> dict:
+    """``name``'s launches on path (A), the wide train run, by head dim."""
+    return {f"d{d}": res["wide_widths"].get((name, d), 0) for d in (HEAD_DIM, WIDE_HEAD_DIM)}
+
+
+def d64_fields(r: dict, library: bool = True) -> dict:
+    """A kernel's numbers at head dim 64 (the wide layers' shapes)."""
+    return {"d64_ms": r["ms"], "d64_plain_ms": r["plain_ms"], "d64_bound_ms": r["bound_ms"],
+            "d64_bound_by": r["bound_by"], "d64_max_abs_err": r["max_abs_err"],
+            "d64_library_ms": r["library_ms"] if library else None}
 
 
 def kernel_line(res):
@@ -3544,7 +4157,10 @@ def kernel_line(res):
          "deploy_launches": res["deploy_counts"], "int8_launches": res["int8_counts"],
          "aot_graph_launches_per_frame_profiled": res["aot_counts"],
          "export_launches": {"fresh_process": res["export_counts"], "frames": 4},
-         "apps_launches": {app: c["ms_deform_attn_fwd"] for app, c in res["apps_counts"].items()}},
+         "apps_launches": {app: c["ms_deform_attn_fwd"] for app, c in res["apps_counts"].items()},
+         **d64_fields(res["deform_d64"], library=False),
+         "wide_launches": wide_launches(res, "ms_deform_attn_fwd"),
+         "extra_level_launches": res["extra_counts"]["ms_deform_attn_fwd"]},
     ] + [
         {"name": name, "route": "cuda", "source": "dfine_tpu_torch/csrc/rows_scatter_add_tile.cu",
          "replaces": f"dfine_tpu/ops/pallas/scatter_rows.py:{line}",
@@ -3558,7 +4174,12 @@ def kernel_line(res):
          "bound_ms": res[name]["bound_ms"], "bound_by": res[name]["bound_by"],
          "library_ms": res[name]["library_ms"], "path": path,
          "train_in_situ_ms": in_situ_ms(res, symbol),
-         "step_inputs_ms": res["in_situ"][name]}
+         "step_inputs_ms": res["in_situ"][name],
+         **d64_fields(res[f"{name}_d64"]),
+         "d64_step_inputs_ms": res["wide_in_situ"]["ms_per_step"][name],
+         "d64_step_inputs_library_ms": res["wide_in_situ"]["ms_per_step"]["library"],
+         "wide_launches": wide_launches(res, name),
+         "extra_level_launches": res["extra_counts"][name]}
         for name, line, counts, path, symbol in scatters
     ]}
 
@@ -3596,8 +4217,9 @@ def main() -> int:
                phase_scatter_tiled, phase_core_backward, phase_model, phase_serving,
                phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,
-               phase_train_l_frozen, phase_serving_modes, phase_deploy, phase_int8,
-               phase_aot_graph, phase_export, phase_trainer, phase_dp, phase_apps):
+               phase_train_l_frozen, phase_wide_tail, phase_extra_level, phase_flat_optim,
+               phase_serving_modes, phase_deploy, phase_int8, phase_aot_graph, phase_export,
+               phase_trainer, phase_dp, phase_apps):
         t0 = time.perf_counter()
         try:
             fn(res)

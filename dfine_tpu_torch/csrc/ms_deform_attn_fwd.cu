@@ -13,8 +13,8 @@
 //
 // Layouts: value [B, S, H, D] (S = sum of the levels' H*W), bf16 or f32;
 // loc [B, Q, H, P, 2] f32 in [0, 1]; att [B, Q, H, P] f32; out [B, Q, H*D] f32.
-// D is 16 or 32, P at most 16, at most 4 levels; value 16-byte aligned, loc
-// 8-byte aligned. Anything else is refused with cudaErrorInvalidValue.
+// D is 16, 32 or 64, P at most 16, at most 4 levels; value 16-byte aligned,
+// loc 8-byte aligned. Anything else is refused with cudaErrorInvalidValue.
 //
 // Bound on the H100: memory. At m@640 (S = 8400, H = 8, D = 32, P = 12) the
 // kernel must read once each bf16 value row that a valid corner touches,
@@ -53,13 +53,26 @@
 //      24 for a full reduce.
 //   6. The item's D lanes store its D f32 outputs: one 128-byte line a warp.
 // Each pair is computed once, by one lane, and not once in every lane of its
-// group. TMA and wgmma do not fit: the loads are a gather of scattered 32- and
+// group.
+//
+// Head dim 64 (the widened decoder layers past eval_idx, layer_scale = 2 at
+// s/m/l/x): a head no longer fits a warp's 32 lanes at one 16-byte piece a
+// lane group, so its 64 channels are two 32-channel slices that share the
+// locations and attention weights. A slice is an item of the D = 32 design
+// above with the value row offset by 32 channels and the output by 32
+// floats: the two slices of a head run on neighbouring warps, each computing
+// the same pairs, each loading its own 64-byte half of every corner row
+// (bf16; 128 bytes at f32). At the train shape the wide value is 68.8 MB in
+// bf16, more than the 50 MB L2, so corner rows are no longer all L2 hits.
+//
+// TMA and wgmma do not fit: the loads are a gather of scattered 32- and
 // 64-byte rows, and the arithmetic is a weighted sum, not a matrix product.
 //
 // nvcc -Xptxas -v for sm_90a: 32 registers at bf16 D = 32 P = 12 (the serving
-// and train instance), 30 to 44 across the 16 instances, no spills, no
-// shared memory; 4-warp CTAs, so the main instance may hold 16 CTAs (64
-// warps) an SM.
+// and train instance), 30 to 44 across the 16 instances at D = 16 and 32, no
+// spills, no shared memory; 4-warp CTAs, so the main instance may hold 16
+// CTAs (64 warps) an SM. chip_smoke.py prints the registers of all 24
+// instances, the 8 at D = 64 among them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,7 +120,7 @@ struct Vec<float> {
   }
 };
 
-template <typename T, int D, int K>
+template <typename T, int D, int SPLIT, int K>
 __global__ void __launch_bounds__(kThreads)
 ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                           const float* __restrict__ att, float* __restrict__ out, long long items,
@@ -118,16 +131,19 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
   constexpr int IW = 32 / D;                       // items a warp
   constexpr int J = (C * (K - 1) + C - 1) / D + 1;  // pairs a lane computes
   constexpr int kRounds = C == 8 ? 3 : 2;
+  constexpr int DH = D * SPLIT;                    // head dim: SPLIT slices of D channels
   static_assert(LR * C == D && IW * D == 32, "layout");
   const int lane = threadIdx.x & 31;
   const long long first = ((long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * IW;
   if (first >= items) return;  // the whole warp
   const bool live = first + lane / D < items;
-  const long long item = live ? first + lane / D : items - 1;
+  const long long slice = live ? first + lane / D : items - 1;  // items counts slices
+  const long long item = slice / SPLIT;                          // the (b, q, head)
+  const int half = (int)(slice % SPLIT);
   const int li = lane % D, base_lane = lane - li, part = li % LR, group = li / LR;
   const int head = (int)(item % H);
-  const long long row = (long long)H * D;  // elements between two value rows
-  const T* val = value + (item / QH) * S * row + (long long)head * D + part * C;
+  const long long row = (long long)H * DH;  // elements between two value rows
+  const T* val = value + (item / QH) * S * row + (long long)head * DH + half * D + part * C;
   const float2* loc_i = reinterpret_cast<const float2*>(loc + item * P * 2);
   const float* att_i = att + item * P;
 
@@ -204,38 +220,37 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
   for (int r = 0; r < kRounds; ++r) ch += ((group >> r) & 1) * (C >> (r + 1));
 
   // 6. one f32 a lane: the warp writes whole output lines
-  if (live) out[item * D + ch] = acc[0];
+  if (live) out[item * DH + half * D + ch] = acc[0];
 }
 
-template <typename T, int D, int K>
+template <typename T, int D, int SPLIT, int K>
 cudaError_t launch(const void* value, const void* loc, const void* att, void* out, long long items,
                    int S, int QH, int H, int P, const Levels& lv, cudaStream_t stream) {
   const long long per_block = kThreads / 32 * (32 / D);
   const long long blocks = (items + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ms_deform_attn_fwd_kernel<T, D, K><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ms_deform_attn_fwd_kernel<T, D, SPLIT, K><<<(unsigned)blocks, kThreads, 0, stream>>>(
       (const T*)value, (const float*)loc, (const float*)att, (float*)out, items, S, QH, H, P, lv);
   return cudaGetLastError();
 }
 
 // The pairs a lane takes, rounded up to a compiled count (2, 4, 6 or 8 at
 // bf16, where a lane has every second point; 4, 8, 12 or 16 at f32).
-template <typename T, int D>
-cudaError_t dispatch(const void* value, const void* loc, const void* att, void* out,
-                     long long items, int S, int QH, int H, int P, const Levels& lv,
-                     cudaStream_t s) {
+template <typename T, int D, int SPLIT>
+cudaError_t dispatch(const void* v, const void* l, const void* a, void* o, long long n, int S,
+                     int QH, int H, int P, const Levels& lv, cudaStream_t s) {
   constexpr int PS = Vec<T>::C / 4;
   const int pairs = (P + PS - 1) / PS;
   if constexpr (PS == 2) {
-    if (pairs <= 2) return launch<T, D, 2>(value, loc, att, out, items, S, QH, H, P, lv, s);
-    if (pairs <= 4) return launch<T, D, 4>(value, loc, att, out, items, S, QH, H, P, lv, s);
-    if (pairs <= 6) return launch<T, D, 6>(value, loc, att, out, items, S, QH, H, P, lv, s);
-    return launch<T, D, 8>(value, loc, att, out, items, S, QH, H, P, lv, s);
+    if (pairs <= 2) return launch<T, D, SPLIT, 2>(v, l, a, o, n, S, QH, H, P, lv, s);
+    if (pairs <= 4) return launch<T, D, SPLIT, 4>(v, l, a, o, n, S, QH, H, P, lv, s);
+    if (pairs <= 6) return launch<T, D, SPLIT, 6>(v, l, a, o, n, S, QH, H, P, lv, s);
+    return launch<T, D, SPLIT, 8>(v, l, a, o, n, S, QH, H, P, lv, s);
   } else {
-    if (pairs <= 4) return launch<T, D, 4>(value, loc, att, out, items, S, QH, H, P, lv, s);
-    if (pairs <= 8) return launch<T, D, 8>(value, loc, att, out, items, S, QH, H, P, lv, s);
-    if (pairs <= 12) return launch<T, D, 12>(value, loc, att, out, items, S, QH, H, P, lv, s);
-    return launch<T, D, 16>(value, loc, att, out, items, S, QH, H, P, lv, s);
+    if (pairs <= 4) return launch<T, D, SPLIT, 4>(v, l, a, o, n, S, QH, H, P, lv, s);
+    if (pairs <= 8) return launch<T, D, SPLIT, 8>(v, l, a, o, n, S, QH, H, P, lv, s);
+    if (pairs <= 12) return launch<T, D, SPLIT, 12>(v, l, a, o, n, S, QH, H, P, lv, s);
+    return launch<T, D, SPLIT, 16>(v, l, a, o, n, S, QH, H, P, lv, s);
   }
 }
 
@@ -266,13 +281,18 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
   const cudaStream_t s = (cudaStream_t)stream;
   const int QH = Q * H;
   if (value_is_bf16 && D == 32)
-    return (int)dispatch<__nv_bfloat16, 32>(value, loc, att, out, items, S, QH, H, P, lv, s);
+    return (int)dispatch<__nv_bfloat16, 32, 1>(value, loc, att, out, items, S, QH, H, P, lv, s);
   if (value_is_bf16 && D == 16)
-    return (int)dispatch<__nv_bfloat16, 16>(value, loc, att, out, items, S, QH, H, P, lv, s);
+    return (int)dispatch<__nv_bfloat16, 16, 1>(value, loc, att, out, items, S, QH, H, P, lv, s);
+  if (value_is_bf16 && D == 64)  // two 32-channel slices a head
+    return (int)dispatch<__nv_bfloat16, 32, 2>(value, loc, att, out, 2 * items, S, QH, H, P,
+                                                lv, s);
   if (!value_is_bf16 && D == 32)
-    return (int)dispatch<float, 32>(value, loc, att, out, items, S, QH, H, P, lv, s);
+    return (int)dispatch<float, 32, 1>(value, loc, att, out, items, S, QH, H, P, lv, s);
   if (!value_is_bf16 && D == 16)
-    return (int)dispatch<float, 16>(value, loc, att, out, items, S, QH, H, P, lv, s);
+    return (int)dispatch<float, 16, 1>(value, loc, att, out, items, S, QH, H, P, lv, s);
+  if (!value_is_bf16 && D == 64)
+    return (int)dispatch<float, 32, 2>(value, loc, att, out, 2 * items, S, QH, H, P, lv, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -281,7 +301,7 @@ extern "C" int ms_deform_attn_fwd(const void* value, const void* loc, const void
 // is the floor under any launch of the kernel. Returns the cudaError_t.
 extern "C" int ms_deform_attn_fwd_empty(void* stream) {
   Levels lv = {};
-  ms_deform_attn_fwd_kernel<__nv_bfloat16, 32, 6><<<1, kThreads, 0, (cudaStream_t)stream>>>(
+  ms_deform_attn_fwd_kernel<__nv_bfloat16, 32, 1, 6><<<1, kThreads, 0, (cudaStream_t)stream>>>(
       nullptr, nullptr, nullptr, nullptr, 0, 0, 1, 1, 1, lv);
   return (int)cudaGetLastError();
 }

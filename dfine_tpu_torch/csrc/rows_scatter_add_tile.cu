@@ -26,7 +26,7 @@
 // Layouts: idx [R, N] int32; contrib [R, N, D] f32 (rows_scatter_add) or bf16
 // (rows_scatter_add_mxu, rows_scatter_add_tiled; 16-byte aligned); out
 // [R, HW, D] f32, written whole by the kernel (the caller allocates it
-// uninitialized). D is 16 or 32; any other D is refused with
+// uninitialized). D is 16, 32 or 64; any other D is refused with
 // cudaErrorInvalidValue.
 //
 // Bound on the H100: memory. Each payload byte is read once and each output
@@ -61,6 +61,20 @@
 // train step's sampling points cluster (up to about 500 entries on one
 // level-0 pixel and 1000 on one level-1 pixel), and there the kernel takes
 // 1.7 to 2 times its time on uniform destinations.
+//
+// D = 64 (the widened decoder layers past eval_idx, layer_scale = 2 at
+// s/m/l/x): rows_scatter_add's lanes take two columns each, d and d + 32, so
+// that a payload row is still two coalesced 128-byte loads and neighbouring
+// lanes still add on neighbouring banks; its tile is 32 KB and, with the
+// lists, 56 KB of shared memory, above the 48 KB a launch gets unasked
+// (allow_smem). The sorted kernel keeps one row's 32 lanes of two columns
+// and sums 16 rows a lane, with a launch bound of 3 CTAs an SM (85
+// registers) for its 32 f32 sums. The mma kernel's warps hold 8 m16n8
+// fragments (twice the 32 floats of D = 32, and as many again for a chunk's
+// partial sums), with a launch bound of 2 CTAs an SM (128 registers); its
+// staged rows are 144 bytes, and its output staging (34 KB) takes the lists'
+// and the stages' space, free after the last window. chip_smoke.py prints
+// the registers and spills of every instance.
 //
 // rows_scatter_add_tiled: a stable counting sort of each window's kept
 // entries by destination, in shared memory: (1) a histogram per (destination,
@@ -130,6 +144,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kTile = 128;                // destination rows a CTA
@@ -142,6 +158,7 @@ constexpr int kJBits = 8;                 // a list entry: (n - n0) << kJBits | 
 constexpr int kJMask = (1 << kJBits) - 1;
 constexpr int kBatch = 16;                // payload rows a lane loads before it adds them
 constexpr int kSortedBlocks = 4;          // CTAs an SM for the sorted kernel (<= 64 registers)
+constexpr int kSortedBlocksWide = 3;      // the same at D = 64 (<= 85 registers)
 static_assert(kTile <= (1 << kJBits), "a tile row must fit kJBits");
 static_assert(kWindow < (1 << (31 - kJBits)), "a window offset must fit the rest");
 
@@ -178,10 +195,12 @@ rows_scatter_add_tile_kernel(const int* __restrict__ idx, const float* __restric
   extern __shared__ __align__(16) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);            // [kTile, D]
   int* lists = reinterpret_cast<int*>(acc + kTile * D);   // [kWarps, kSpan]
-  constexpr int G = 32 / D;                               // row groups of D lanes a warp
+  constexpr int CL = D > 32 ? D / 32 : 1;                 // columns a lane: d + 32 k
+  constexpr int LW = D / CL;                              // lanes a payload row
+  constexpr int G = 32 / LW;                              // row groups a warp
   const int r = blockIdx.x / tiles, t0 = (blockIdx.x % tiles) * kTile;
   const int hi = min(t0 + kTile, HW);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane / D, d = lane % D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane / LW, d = lane % LW;
   int* list = lists + warp * kSpan;
   const int* idx_row = idx + (long long)r * N;
   const float* src = contrib + (long long)r * N * D + d;
@@ -194,22 +213,28 @@ rows_scatter_add_tile_kernel(const int* __restrict__ idx, const float* __restric
     const int count = compact_span(idx_row, N, n0, t0, hi, warp, lane, list);
     __syncwarp();
     for (int e0 = 0; e0 < count; e0 += G * kBatch) {
-      float v[kBatch];
+      float v[kBatch][CL];
       int j[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int e = e0 + g + G * u;
         j[u] = -1;
-        v[u] = 0.f;
+#pragma unroll
+        for (int k = 0; k < CL; ++k) v[u][k] = 0.f;
         if (e < count) {
           const int p = list[e];
           j[u] = p & kJMask;
-          v[u] = __ldg(src + (long long)(n0 + (p >> kJBits)) * D);
+#pragma unroll
+          for (int k = 0; k < CL; ++k)
+            v[u][k] = __ldg(src + (long long)(n0 + (p >> kJBits)) * D + 32 * k);
         }
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
-        if (j[u] >= 0) atomicAdd(acc + j[u] * D + d, v[u]);
+        if (j[u] >= 0) {
+#pragma unroll
+          for (int k = 0; k < CL; ++k) atomicAdd(acc + j[u] * D + d + 32 * k, v[u][k]);
+        }
     }
     __syncwarp();  // the list is refilled by the next window
   }
@@ -221,7 +246,7 @@ rows_scatter_add_tile_kernel(const int* __restrict__ idx, const float* __restric
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, kSortedBlocks)
+__global__ void __launch_bounds__(kThreads, D > 32 ? kSortedBlocksWide : kSortedBlocks)
 rows_scatter_add_tile_sorted_kernel(const int* __restrict__ idx,
                                     const __nv_bfloat16* __restrict__ contrib,
                                     float* __restrict__ out, int N, int HW, int tiles) {
@@ -259,7 +284,8 @@ rows_scatter_add_tile_sorted_kernel(const int* __restrict__ idx,
     __syncthreads();
 
     // (1) histogram of the destinations, per warp
-    for (int e = lane; e < count; e += 32) atomicAdd(offset + (list[e] & kJMask) * kWarps + warp, 1);
+    for (int e = lane; e < count; e += 32)
+      atomicAdd(offset + (list[e] & kJMask) * kWarps + warp, 1);
     __syncthreads();
 
     // (2) exclusive scan in (destination, warp) order; run[j] = start of row j
@@ -335,6 +361,7 @@ rows_scatter_add_tile_sorted_kernel(const int* __restrict__ idx,
 constexpr int kMmaStage = 128;  // entries a staging buffer of the mma kernel holds
 constexpr int kMmaBufs = 2;     // its staging buffers: kMmaBufs - 1 chunks in flight
 constexpr int kMmaBlocks = 4;   // CTAs an SM for the mma kernel (<= 64 registers)
+constexpr int kMmaBlocksWide = 2;  // the same at D = 64 (<= 128 registers)
 static_assert(kMmaStage % 32 == 0 && kMmaStage <= 256, "a chunk entry must fit a byte");
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -370,7 +397,7 @@ __device__ __forceinline__ unsigned onehot2(unsigned lo, unsigned hi, unsigned r
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, kMmaBlocks)
+__global__ void __launch_bounds__(kThreads, D > 32 ? kMmaBlocksWide : kMmaBlocks)
 rows_scatter_add_mma_kernel(const int* __restrict__ idx, const __nv_bfloat16* __restrict__ contrib,
                             float* __restrict__ out, int N, int HW, int tiles) {
   constexpr int RS = D * 2 + 16;  // bytes a staged row (the pad spreads ldmatrix's rows on banks)
@@ -378,7 +405,8 @@ rows_scatter_add_mma_kernel(const int* __restrict__ idx, const __nv_bfloat16* __
   constexpr int NF = D / 8;       // m16n8 fragments of a warp's 16 rows
   constexpr int OS = D + 4;       // floats a row of the output staging
   static_assert(kWarps * 16 == kTile, "a warp owns 16 rows of the tile");
-  static_assert(kWarps * 16 * OS * 4 <= kWarps * kSpan * 4, "the output staging fits the lists");
+  static_assert(kWarps * 16 * OS * 4 <= kWarps * kSpan * 4 + kMmaBufs * kMmaStage * RS,
+                "the output staging fits the lists and the stages");
   extern __shared__ __align__(16) unsigned char smem[];
   int* lists = reinterpret_cast<int*>(smem);                    // [kWarps, kSpan]
   unsigned char* stage = smem + kWarps * kSpan * sizeof(int);   // [kMmaBufs][kMmaStage][RS]
@@ -494,8 +522,9 @@ rows_scatter_add_mma_kernel(const int* __restrict__ idx, const __nv_bfloat16* __
     __syncthreads();  // counts and lists are refilled by the next window
   }
 
-  // the warp's 16 rows through shared memory (the lists, free now), then 16-byte stores
-  float* rows = reinterpret_cast<float*>(lists) + warp * 16 * OS;
+  // the warp's 16 rows through shared memory (the lists and the stages, free
+  // now), then 16-byte stores
+  float* rows = reinterpret_cast<float*>(smem) + warp * 16 * OS;
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     *reinterpret_cast<float2*>(rows + g * OS + j * 8 + 2 * tq) = make_float2(acc[j][0], acc[j][1]);
@@ -534,10 +563,31 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // Checks the sizes and returns the grid (0: nothing to do, -1: refused).
 long long grid_of(int R, int N, int HW, int D) {
-  if (D != 16 && D != 32) return -1;
+  if (D != 16 && D != 32 && D != 64) return -1;
   if (R < 0 || N < 0 || HW < 0) return -1;
   const long long blocks = (long long)R * ((HW + kTile - 1) / kTile);
   return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
+// f(std::integral_constant<int, D>) for the compiled widths
+template <typename F>
+cudaError_t by_width(int D, F&& f) {
+  switch (D) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Payload, typename Kernel>
+cudaError_t run(Kernel kernel, size_t smem, long long blocks, const void* idx,
+                const void* contrib, void* out, int N, int HW, cudaStream_t s) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>((const int*)idx, (const Payload*)contrib,
+                                                  (float*)out, N, HW, (HW + kTile - 1) / kTile);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -546,17 +596,13 @@ long long grid_of(int R, int N, int HW, int D) {
 extern "C" int rows_scatter_add(const void* idx, const void* contrib, void* out, int R, int N,
                                 int HW, int D, void* stream) {
   const long long blocks = grid_of(R, N, HW, D);
-  if (blocks < 0) return (int)cudaErrorInvalidValue;
-  if (blocks == 0) return (int)cudaSuccess;
-  const int tiles = (HW + kTile - 1) / kTile;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto kernel = D == 32 ? rows_scatter_add_tile_kernel<32> : rows_scatter_add_tile_kernel<16>;
-  const size_t smem = D == 32 ? tile_smem<32>() : tile_smem<16>();
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, s>>>((const int*)idx, (const float*)contrib,
-                                                  (float*)out, N, HW, tiles);
-  return (int)cudaGetLastError();
+  if (blocks <= 0) return blocks < 0 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
+  return (int)by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return run<float>(
+        rows_scatter_add_tile_kernel<W>, tile_smem<W>(), blocks, idx, contrib, out, N, HW,
+        (cudaStream_t)stream);
+  });
 }
 
 extern "C" int rows_scatter_add_mxu(const void* idx, const void* contrib, void* out, int R, int N,
@@ -564,29 +610,22 @@ extern "C" int rows_scatter_add_mxu(const void* idx, const void* contrib, void* 
   const long long blocks = grid_of(R, N, HW, D);
   if (blocks < 0 || ((size_t)contrib & 15)) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return (int)cudaSuccess;
-  const int tiles = (HW + kTile - 1) / kTile;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto kernel = D == 32 ? rows_scatter_add_mma_kernel<32> : rows_scatter_add_mma_kernel<16>;
-  const size_t smem = D == 32 ? mma_smem<32>() : mma_smem<16>();
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, s>>>((const int*)idx, (const __nv_bfloat16*)contrib,
-                                                  (float*)out, N, HW, tiles);
-  return (int)cudaGetLastError();
+  return (int)by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return run<__nv_bfloat16>(
+        rows_scatter_add_mma_kernel<W>, mma_smem<W>(), blocks, idx, contrib, out, N, HW,
+        (cudaStream_t)stream);
+  });
 }
 
 extern "C" int rows_scatter_add_tiled(const void* idx, const void* contrib, void* out, int R,
                                       int N, int HW, int D, void* stream) {
   const long long blocks = grid_of(R, N, HW, D);
-  if (blocks < 0) return (int)cudaErrorInvalidValue;
-  if (blocks == 0) return (int)cudaSuccess;
-  const int tiles = (HW + kTile - 1) / kTile;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto kernel =
-      D == 32 ? rows_scatter_add_tile_sorted_kernel<32> : rows_scatter_add_tile_sorted_kernel<16>;
-  const cudaError_t err = allow_smem(kernel, sorted_smem());
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, sorted_smem(), s>>>(
-      (const int*)idx, (const __nv_bfloat16*)contrib, (float*)out, N, HW, tiles);
-  return (int)cudaGetLastError();
+  if (blocks <= 0) return blocks < 0 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
+  return (int)by_width(D, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return run<__nv_bfloat16>(
+        rows_scatter_add_tile_sorted_kernel<W>, sorted_smem(), blocks, idx, contrib, out, N, HW,
+        (cudaStream_t)stream);
+  });
 }

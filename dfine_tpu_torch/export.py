@@ -19,7 +19,7 @@ in the exported program.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,14 +68,16 @@ def export_model(model_name: str, model_path: Optional[str], num_classes: int,
                  half: bool = True, max_batch_size: int = 1, enable_mask_head: bool = False,
                  formats=("aot", "exported", "npz"), deploy: bool = True,
                  dynamic_batch: bool = False,
-                 device: Optional[Union[str, torch.device]] = None) -> Dict[str, Path]:
+                 device: Optional[Union[str, torch.device]] = None,
+                 cfg_overrides: Sequence[Tuple[str, Any]] = ()) -> Dict[str, Path]:
     """Write the artifacts of ``formats`` under ``out_dir``; weights from
-    ``model_path`` (None, .npz or .pth, as ``TorchModel`` takes them)."""
+    ``model_path`` (None, .npz or .pth, as ``TorchModel`` takes them), of
+    the model ``build_model`` makes with ``cfg_overrides``."""
     dev = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    model = load_weights(build_model(model_name, num_classes, enable_mask_head, device="cpu"),
-                         model_path)
+    model = load_weights(build_model(model_name, num_classes, enable_mask_head, device="cpu",
+                                     cfg_overrides=cfg_overrides), model_path)
     artifacts: Dict[str, Path] = {}
     if "npz" in formats:
         p = out_dir / f"dfine_{model_name}.npz"

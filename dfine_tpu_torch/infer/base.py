@@ -24,7 +24,7 @@ raises.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -93,8 +93,12 @@ class BaseServing:
         num_top_queries: int = 300,
         prebuild_rect_buckets: bool = True,
         device: Optional[Union[str, torch.device]] = None,
+        cfg_overrides: Sequence[Tuple[str, Any]] = (),
     ):
         self.device = resolve_device(device)
+        # patched over the size's configuration, as build_model takes them
+        # (e.g. (("decoder.num_levels", 4), ("decoder.num_points", (3, 6, 3, 3))))
+        self.cfg_overrides = tuple(cfg_overrides)
         self.input_size = (input_height, input_width)
         self.model_name = model_name
         self.n_outputs = n_outputs

@@ -48,7 +48,7 @@ class TorchModel(BaseServing):
     def _build(self, model_path: Optional[str]) -> None:
         dtype = torch.bfloat16 if self.half else torch.float32
         model = build_model(self.model_name, self.n_outputs, self.enable_mask_head,
-                            dtype=torch.float32, device="cpu")
+                            dtype=torch.float32, device="cpu", cfg_overrides=self.cfg_overrides)
         model = self._convert(load_weights(model, model_path))
         self.model = set_compute_dtype(model, dtype).to(self.device).eval()
         if self.device.type == "cuda":

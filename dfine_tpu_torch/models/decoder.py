@@ -4,8 +4,17 @@ self-attention + deformable cross-attention + gate + FFN, the FDR integral
 with distance2bbox, LQE, and the mask pixel decoder.
 
 Eval mode runs ``eval_idx + 1`` layers and returns the last layer's
-outputs. Train mode (``self.training``) runs all ``num_layers`` layers and
-returns the sets the criterion supervises (decoder.py:390-729): the final
+outputs. With ``layer_scale`` > 1 the layers past ``eval_idx`` are wide
+(``hidden_dim * layer_scale``, FFN ``dim_feedforward * layer_scale``, their
+score and box heads too, decoder.py:515-590): train mode enters them with
+the query features, the query positions and the value repeated channel-wise
+(JAX's "nearest" resize by an integer factor), and eval mode never runs
+them. ``num_levels`` above the encoder's maps adds stride-2 levels
+(decoder.py:374-385): a 3x3 stride-2 conv and BatchNorm over the
+unprojected last map, then over the previous level.
+
+Train mode (``self.training``) runs all ``num_layers`` layers and returns
+the sets the criterion supervises (decoder.py:390-729): the final
 layer, ``aux_outputs``, ``pre_outputs``, ``enc_aux_outputs`` and, when
 targets are given, the contrastive-denoising queries' ``dn_outputs``,
 ``dn_pre_outputs`` and ``dn_meta``. With the mask head, train mode emits the
@@ -37,6 +46,13 @@ from .layers import MLP, BatchNorm2d, LayerNorm, MultiHeadSelfAttention, get_act
 
 def bias_init_with_prob(prior: float) -> float:
     return float(-math.log((1 - prior) / prior))
+
+
+def chan_repeat(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """The last dim ``factor`` times as wide, each channel repeated in place:
+    JAX's ``jax.image.resize(..., "nearest")`` by an integer factor (torch's
+    ``nearest-exact``, not ``nearest``, in general)."""
+    return x.repeat_interleave(factor, -1)
 
 
 def generate_anchors(spatial_shapes: Sequence[Tuple[int, int]], grid_size: float = 0.05,
@@ -72,7 +88,7 @@ class MSDeformableAttention(nn.Module):
 
     def __init__(self, embed_dim, num_heads, num_points_list, offset_scale=0.5):
         super().__init__()
-        self.num_heads = num_heads
+        self.embed_dim, self.num_heads = embed_dim, num_heads
         self.num_points_list = tuple(num_points_list)
         self.offset_scale = offset_scale
         total_p = sum(self.num_points_list)
@@ -181,14 +197,17 @@ class TransformerDecoderLayer(nn.Module):
 
 class TransformerDecoder(nn.Module):
     """Holds the decoder layers and their LQEs (the reference's
-    ``decoder.decoder`` key prefix)."""
+    ``decoder.decoder`` key prefix); the layers past ``eval_idx`` are
+    ``layer_scale`` times as wide."""
 
     def __init__(self, hidden_dim, nhead, dim_feedforward, num_points, num_layers, reg_max,
-                 activation="relu"):
+                 activation, eval_idx, layer_scale):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer(hidden_dim, nhead, dim_feedforward, num_points, activation)
-            for _ in range(num_layers))
+            TransformerDecoderLayer(hidden_dim * (layer_scale if i > eval_idx else 1), nhead,
+                                    dim_feedforward * (layer_scale if i > eval_idx else 1),
+                                    num_points, activation)
+            for i in range(num_layers))
         self.lqe_layers = nn.ModuleList(LQE(4, 64, 2, reg_max) for _ in range(num_layers))
 
 
@@ -227,14 +246,20 @@ class DFINETransformer(nn.Module):
         super().__init__()
         if query_select_method not in ("default", "one2many", "agnostic"):
             raise ValueError(f"unknown query_select_method {query_select_method!r}")
-        if layer_scale != 1:
-            raise NotImplementedError("layer_scale != 1 is not ported")
-        if num_levels != len(feat_channels):
-            raise NotImplementedError("extra pyramid levels are not ported")
+        if layer_scale < 1 or (hidden_dim * layer_scale) % nhead:
+            raise ValueError(f"decoder.layer_scale = {layer_scale}: must be >= 1 and keep "
+                             f"the wide width divisible by encoder.nhead = {nhead}")
+        if layer_scale > 1 and enable_mask_head:
+            # decoder.py:520-525: the one mask MLP cannot take queries of two widths
+            raise ValueError("decoder.layer_scale > 1 is incompatible with the mask head")
         hd = hidden_dim
         self.num_classes, self.hidden_dim, self.num_queries = num_classes, hd, num_queries
         self.nhead, self.num_layers, self.eps = nhead, num_layers, eps
         self.eval_idx = eval_idx if eval_idx >= 0 else num_layers + eval_idx
+        self.layer_scale = layer_scale
+        self.extra_levels = max(0, num_levels - len(feat_channels))
+        # the width of layer i and of its score and box heads
+        widths = [hd * (layer_scale if i > self.eval_idx else 1) for i in range(num_layers)]
         self.reg_max, self.reg_scale, self.up = reg_max, float(reg_scale), float(up)
         self.enable_mask_head = enable_mask_head
         self.query_select_method = query_select_method
@@ -245,8 +270,12 @@ class DFINETransformer(nn.Module):
             nn.Identity() if c == hd else nn.Sequential(OrderedDict(
                 conv=nn.Conv2d(c, hd, 1, bias=False), norm=BatchNorm2d(hd)))
             for c in feat_channels)
+        for i in range(len(feat_channels), num_levels):  # extra levels, stride 2 each
+            c = feat_channels[-1] if i == len(feat_channels) else hd
+            self.input_proj.append(nn.Sequential(OrderedDict(
+                conv=nn.Conv2d(c, hd, 3, 2, 1, bias=False), norm=BatchNorm2d(hd))))
         self.decoder = TransformerDecoder(hd, nhead, dim_feedforward, num_points, num_layers,
-                                          reg_max, activation)
+                                          reg_max, activation, self.eval_idx, layer_scale)
         if num_denoising > 0:
             self.denoising_class_embed = nn.Embedding(num_classes + 1, hd, padding_idx=num_classes)
         self.enc_output = nn.Sequential(OrderedDict(proj=nn.Linear(hd, hd), norm=LayerNorm(hd)))
@@ -256,9 +285,8 @@ class DFINETransformer(nn.Module):
         self.enc_bbox_head = MLP(hd, hd, 4, 3)
         self.query_pos_head = MLP(4, 2 * hd, hd, 2)
         self.pre_bbox_head = MLP(hd, hd, 4, 3)
-        self.dec_score_head = nn.ModuleList(nn.Linear(hd, num_classes) for _ in range(num_layers))
-        self.dec_bbox_head = nn.ModuleList(
-            MLP(hd, hd, 4 * (reg_max + 1), 3) for _ in range(num_layers))
+        self.dec_score_head = nn.ModuleList(nn.Linear(d, num_classes) for d in widths)
+        self.dec_bbox_head = nn.ModuleList(MLP(d, d, 4 * (reg_max + 1), 3) for d in widths)
         if enable_mask_head:
             # the FPN maps come from the encoder, wider than the decoder at size x
             self.pixel_decoder = MaskPixelDecoder(feat_channels, hd, mask_dim)
@@ -268,7 +296,7 @@ class DFINETransformer(nn.Module):
     def init_special_(self, generator=None):
         """The JAX package's initializers where they differ from torch's."""
         cls_bias = bias_init_with_prob(0.01)
-        for proj in self.input_proj:
+        for proj in self.input_proj[: len(self.input_proj) - self.extra_levels]:
             if not isinstance(proj, nn.Identity):
                 nn.init.xavier_uniform_(proj.conv.weight, generator=generator)
         nn.init.xavier_uniform_(self.enc_output.proj.weight, generator=generator)
@@ -342,6 +370,8 @@ class DFINETransformer(nn.Module):
         b = feats[0].shape[0]
         hd = self.hidden_dim
         proj = [p(f) for p, f in zip(self.input_proj, feats)]
+        for i in range(len(feats), len(self.input_proj)):  # the extra levels
+            proj.append(self.input_proj[i](feats[-1] if i == len(feats) else proj[-1]))
         spatial_shapes = tuple((int(p.shape[2]), int(p.shape[3])) for p in proj)
         memory = torch.cat([p.flatten(2).transpose(1, 2) for p in proj], 1)  # [B,S,C]
         anchors, valid, project = self._constants(spatial_shapes, memory.device)
@@ -371,15 +401,27 @@ class DFINETransformer(nn.Module):
             output = torch.cat([dn_content, output], 1)
 
         value = memory.reshape(b, memory.shape[1], self.nhead, hd // self.nhead)
+        num_run = self.num_layers if train else self.eval_idx + 1
+        ls = self.layer_scale
+        if ls > 1 and num_run > self.eval_idx + 1:  # the wide value view, built once
+            value_wide = chan_repeat(memory, ls).reshape(b, memory.shape[1], self.nhead,
+                                                         hd * ls // self.nhead)
         output_detach = torch.zeros_like(output)
         pred_corners_undetach = 0.0
         ref_points_detach = torch.sigmoid(ref_unact)
         ref_points_initial = pre_scores = pre_bboxes = None
         dtype = output.dtype
         dec_logits, dec_boxes, dec_corners, dec_refs, dec_hs = [], [], [], [], []
-        for i in range(self.num_layers if train else self.eval_idx + 1):
+        for i in range(num_run):
+            wide = ls > 1 and i > self.eval_idx
+            if wide and i == self.eval_idx + 1:  # into the wide tail (decoder.py:562-566)
+                output = chan_repeat(output, ls)
+                output_detach = output.detach()
             query_pos = self.query_pos_head(ref_points_detach.to(dtype)).clamp(-10, 10)
-            output = self.decoder.layers[i](output, ref_points_detach, value, spatial_shapes,
+            if wide:
+                query_pos = chan_repeat(query_pos, ls)
+            output = self.decoder.layers[i](output, ref_points_detach,
+                                            value_wide if wide else value, spatial_shapes,
                                             query_pos, attn_mask)
             if i == 0:
                 pre_unact = self.pre_bbox_head(output) + inverse_sigmoid(ref_points_detach)

@@ -60,7 +60,9 @@ _CORNER_TABLE = (
 
 
 class MSDeformAttnCore(torch.autograd.Function):
-    """out = core(value, loc, att); see ``ms_deform_attn_fwd`` for layouts."""
+    """out = core(value, loc, att); see ``ms_deform_attn_fwd`` for layouts.
+    The backward reads the head dim from the value itself, so the wide
+    layers' value (head dim 64) goes to the scatter at D = 64."""
 
     @staticmethod
     def forward(ctx, value, loc, att, spatial_shapes: Sequence[Tuple[int, int]],

@@ -19,23 +19,31 @@ def launch_counts() -> dict:
 
 
 def check_kernel_limits(model) -> None:
-    """Raise if a built ``DFINE`` has a shape the kernels refuse: its head
-    dim (``decoder.hidden_dim // encoder.nhead``) outside what the sampling
-    kernel and the value-gradient scatters take, more than ``MAX_POINTS``
-    sampling points over the levels (``decoder.num_points``), or more than
-    ``MAX_LEVELS`` levels (``decoder.num_levels``). Called where a model
-    reaches a CUDA device, so that such a model fails there and not at its
-    first forward."""
+    """Raise if a built ``DFINE`` has a shape the kernels refuse: a decoder
+    layer whose head dim (its cross-attention width over its heads:
+    ``decoder.hidden_dim // encoder.nhead``, times ``decoder.layer_scale``
+    past ``decoder.eval_idx``) is outside what the sampling kernel and the
+    value-gradient scatters take, more than ``MAX_POINTS`` sampling points
+    over the levels (``decoder.num_points``), or more than ``MAX_LEVELS``
+    levels (``decoder.num_levels``). Every layer is read, the wide ones that
+    only training runs too. Called where a model reaches a CUDA device, so
+    that such a model fails there and not at its first forward."""
     dec = model.decoder
-    d = dec.hidden_dim // dec.nhead
-    points = dec.decoder.layers[0].cross_attn.num_points_list
+    dims = sorted(set(HEAD_DIMS) & set(TILE_WIDTHS))
     levels = len(dec.input_proj)
-    if d not in HEAD_DIMS or d not in TILE_WIDTHS:
-        raise ValueError(f"head dim decoder.hidden_dim // encoder.nhead = {d}: the CUDA kernels "
-                         f"take {sorted(set(HEAD_DIMS) & set(TILE_WIDTHS))}")
-    if sum(points) > MAX_POINTS:
-        raise ValueError(f"decoder.num_points {list(points)} sum to {sum(points)}: the sampling "
-                         f"kernel takes at most {MAX_POINTS}")
+    for i, layer in enumerate(dec.decoder.layers):
+        attn = layer.cross_attn
+        d = attn.embed_dim // attn.num_heads
+        if d not in dims:
+            setting = ("decoder.hidden_dim * decoder.layer_scale // encoder.nhead"
+                       if attn.embed_dim != dec.hidden_dim else
+                       "decoder.hidden_dim // encoder.nhead")
+            raise ValueError(f"decoder layer {i}: head dim {setting} = {d}: the CUDA kernels "
+                             f"take {dims}")
+        points = attn.num_points_list
+        if sum(points) > MAX_POINTS:
+            raise ValueError(f"decoder.num_points {list(points)} sum to {sum(points)}: the "
+                             f"sampling kernel takes at most {MAX_POINTS}")
     if levels > MAX_LEVELS:
         raise ValueError(f"decoder.num_levels = {levels}: the sampling kernel takes at most "
                          f"{MAX_LEVELS}")

@@ -19,7 +19,7 @@ from . import _build
 
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
 MAX_POINTS, MAX_LEVELS = 16, 4  # what the kernel takes (csrc: kMaxPoints, kMaxLevels)
-HEAD_DIMS = (16, 32)  # the head dims it is specialized on
+HEAD_DIMS = (16, 32, 64)  # the head dims it is specialized on (64: two 32-channel slices)
 
 
 def _bilinear_gather_level(v: torch.Tensor, h: int, w: int, loc: torch.Tensor) -> torch.Tensor:
@@ -88,7 +88,7 @@ def ms_deform_attn_fwd(
     att: torch.Tensor,
     num_points: Sequence[int],
 ) -> torch.Tensor:
-    """The sampling core: value [B, S, nhead, d] (bf16 or f32, d in {16, 32}),
+    """The sampling core: value [B, S, nhead, d] (bf16 or f32, d in HEAD_DIMS),
     loc [B, Q, nhead, P, 2] f32, att [B, Q, nhead, P] f32 -> [B, Q, nhead*d]
     f32, with P <= 16 over at most 4 levels. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""

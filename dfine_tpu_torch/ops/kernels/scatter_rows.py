@@ -26,7 +26,7 @@ import torch
 
 from . import _build
 
-TILE_WIDTHS = (16, 32)  # the head dims the kernels take (n: 16, s/m/l/x: 32)
+TILE_WIDTHS = (16, 32, 64)  # head dims the kernels take (n: 16, s/m/l/x: 32, wide tail: 64)
 
 
 def rows_scatter_add_plain(idx: torch.Tensor, contrib: torch.Tensor, hw: int) -> torch.Tensor:

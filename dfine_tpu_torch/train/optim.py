@@ -186,8 +186,29 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> Dict:
+        """What a trainer checkpoint keeps: AdamW's state, the counts, and
+        the running mean of an unfinished accumulation by parameter index."""
+        index = {p: i for i, p in enumerate(self.params)}
+        return {"adamw": self.adamw.state_dict(), "count": self.count,
+                "mini_step": self.mini_step,
+                "accum_mean": {index[p]: m for p, m in self._mean.items()}}
 
-def build_optimizer(model: nn.Module, cfg: OptimConfig) -> Optimizer:
+    def load_state_dict(self, sd: Dict) -> None:
+        self.adamw.load_state_dict(sd["adamw"])
+        self.count, self.mini_step = sd["count"], sd["mini_step"]
+        self._mean = {self.params[i]: m.to(self.params[i].device)
+                      for i, m in sd["accum_mean"].items()}
+
+
+def build_optimizer(model: nn.Module, cfg: OptimConfig, flat: bool = False):
+    """``Optimizer``, or with ``flat`` the ``flat_optim.FlatOptimizer``
+    (``dfine_tpu/train/optim.py:76-97``): the same groups, schedules, clip,
+    accumulation and freezing over one flat buffer."""
+    if flat:
+        from .flat_optim import FlatOptimizer
+
+        return FlatOptimizer(model, cfg)
     return Optimizer(model, cfg)
 
 

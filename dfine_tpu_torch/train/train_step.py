@@ -16,7 +16,9 @@ so it has no gradient, is outside the clip's norm and ``grad_norm``, and
 takes no update and no weight decay, while its BatchNorm still updates its
 statistics), ``ema_base``, and gradient accumulation, which the step reads
 from its optimizer (``OptimConfig.b_accum_steps``: it steps on the mean of
-k micro-steps, and the EMA follows only the optimizer steps).
+k micro-steps, and the EMA follows only the optimizer steps). With the flat
+optimizer (``build_optimizer(flat=True)``) the EMA is ``ema_update_flat``,
+one ``lerp_`` over the flat buffers; data parallelism refuses it.
 
 Data parallelism (``axis_name="dp"``, JAX's step under ``shard_map``): each
 rank runs the step on its rows of the global batch in a process group
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -41,6 +43,7 @@ import torch.nn as nn
 from ..models.denoising import CdnNoise
 from ..parallel.dp import all_reduce_grads_, all_reduce_mean_
 from .criterion import CriterionConfig, criterion_forward
+from .flat_optim import FlatOptimizer, ema_update_flat
 from .optim import EMA_BASE, Optimizer, ema_update
 
 METRIC_TERMS = ("loss_vfl", "loss_bbox", "loss_giou", "loss_fgl", "loss_ddf",
@@ -51,11 +54,11 @@ METRIC_TERMS = ("loss_vfl", "loss_bbox", "loss_giou", "loss_fgl", "loss_ddf",
 class TrainState:
     step: int
     model: nn.Module
-    optimizer: Optimizer
+    optimizer: Union[Optimizer, FlatOptimizer]
     ema: nn.Module  # a copy of the model: EMA of parameters and buffers
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: Optimizer):
+    def create(cls, model: nn.Module, optimizer: Union[Optimizer, FlatOptimizer]):
         ema = copy.deepcopy(model).eval().requires_grad_(False)
         return cls(step=0, model=model.train(), optimizer=optimizer, ema=ema)
 
@@ -78,6 +81,10 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         [B, G, Hm, Wm] and mask_valid [B, G]} on the model's device. The CDN
         noise is ``dn_noise`` or drawn from ``generator``."""
         model, opt = state.model, state.optimizer
+        flat = isinstance(opt, FlatOptimizer)
+        if flat and axis_name is not None:
+            raise ValueError("the flat optimizer (build_optimizer(flat=True)) is not ported "
+                             "to data parallelism: use the four-group Optimizer")
         for name in frozen:
             model.get_parameter(name).requires_grad_(False)
         model.train()
@@ -94,7 +101,7 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         grad_norm = opt.step()
         state.step += 1
         if opt.mini_step == 0:  # an optimizer step: its count drives the warm-up
-            ema_update(state.ema, model, opt.count, ema_base)
+            (ema_update_flat if flat else ema_update)(state.ema, model, opt.count, ema_base)
         metrics = {"loss": losses["total"].detach(), "grad_norm": grad_norm.detach()}
         metrics.update({k: v.detach() for k, v in losses.items()
                         if "_" not in k or k in METRIC_TERMS})

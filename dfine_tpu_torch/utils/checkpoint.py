@@ -275,13 +275,11 @@ def state_dict_of(state, generator: Optional[torch.Generator] = None,
                   meta: Optional[Dict] = None, rank_generators: Optional[list] = None) -> Dict:
     """The whole of a ``train.train_step.TrainState`` as one dict of CPU
     tensors and plain values: model and EMA (parameters and buffers), the
-    step, AdamW's moments and steps, the optimizer's count, its micro-step
-    and the running mean of an unfinished accumulation, and the state of the
+    step, the optimizer's ``state_dict`` (AdamW's moments and steps, or the
+    flat optimizer's, the count, the micro-step and the running mean of an
+    unfinished accumulation), and the state of the
     CDN noise's generator (under data parallelism also every rank's, in
     ``rank_generators``)."""
-    opt = state.optimizer
-    index = {p: i for i, p in enumerate(opt.params)}
-
     def cpu(tree):
         if isinstance(tree, torch.Tensor):
             return tree.detach().cpu().clone()
@@ -297,10 +295,7 @@ def state_dict_of(state, generator: Optional[torch.Generator] = None,
         "step": int(state.step),
         "model": cpu(state.model.state_dict()),
         "ema": cpu(state.ema.state_dict()),
-        "adamw": cpu(opt.adamw.state_dict()),
-        "count": int(opt.count),
-        "mini_step": int(opt.mini_step),
-        "accum_mean": {index[p]: cpu(m) for p, m in opt._mean.items()},
+        **cpu(state.optimizer.state_dict()),
         "generator": None if generator is None else generator.get_state().clone(),
         "rank_generators": rank_generators,
     }
@@ -354,10 +349,7 @@ def restore_state(path: Union[str, Path], state,
     state.model.load_state_dict(ck["model"], strict=True)
     state.ema.load_state_dict(ck["ema"], strict=True)
     state.step = ck["step"]
-    opt = state.optimizer
-    opt.adamw.load_state_dict(ck["adamw"])
-    opt.count, opt.mini_step = ck["count"], ck["mini_step"]
-    opt._mean = {opt.params[i]: m.to(opt.params[i].device) for i, m in ck["accum_mean"].items()}
+    state.optimizer.load_state_dict(ck)
     if generator is not None and ck["generator"] is not None:
         from ..parallel.dp import process_index
 

@@ -100,8 +100,9 @@ ENTRY_POINTS = tuple(f"dfine_tpu_torch.{m}" for m in (
     "apps.train", "apps.export", "apps.infer", "apps.bench", "apps.check_errors", "apps.quant",
     "apps.test_batching", "apps.demo", "etl.split", "etl.coco_yolo", "etl.mask_tools",
     "etl.preprocess"))
-# data parallelism: torch (torch.distributed) and the standard library only
-PARALLEL = ("dfine_tpu_torch.parallel", "dfine_tpu_torch.parallel.dp")
+# data parallelism and the flat optimizer: torch and the standard library only
+PARALLEL = ("dfine_tpu_torch.parallel", "dfine_tpu_torch.parallel.dp",
+            "dfine_tpu_torch.train.flat_optim")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

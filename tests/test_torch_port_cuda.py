@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from test_torch_port_deform_cases import DEFORM_CASES, deform_case
-from test_torch_port_scatter_cases import EDGE_CASES, scatter_case
+from test_torch_port_scatter_cases import CASE_WIDTHS, EDGE_CASES, scatter_case
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +35,8 @@ def _inputs(dev, b, q, h, d, shapes, pts, value_dtype, seed=0, lo=-0.15, hi=1.15
     return value.to(dev, value_dtype), loc.to(dev), att.to(dev)
 
 
-@pytest.mark.parametrize("d,shapes,pts", [(32, M_SHAPES, M_POINTS), (16, N_SHAPES, N_POINTS)])
+@pytest.mark.parametrize("d,shapes,pts", [(32, M_SHAPES, M_POINTS), (16, N_SHAPES, N_POINTS),
+                                          (64, M_SHAPES, M_POINTS)])
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,q", [(1, 300), (8, 500)])  # serving; the train step (200 CDN + 300)
 def test_deform_fwd_kernel_matches_plain(cuda, d, shapes, pts, value_dtype, b, q):
@@ -97,7 +98,7 @@ def test_deform_fwd_kernel_out_of_range_is_exact_zero(cuda):
     assert torch.count_nonzero(out).item() == 0
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", CASE_WIDTHS)
 def test_scatter_kernel_matches_plain(cuda, d):
     """At the train step's shapes (m@640, B = 8, 500 queries): atol 1e-4,
     rtol 1e-5 (shared-memory atomics reorder the f32 sums); all-dropped
@@ -154,7 +155,7 @@ def _tile_case(dev, case, d):
             torch.from_numpy(contrib.astype(np.float32)).to(dev), hw)
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", CASE_WIDTHS)
 @pytest.mark.parametrize("case", [*EDGE_CASES, "rows_1", "rows_100", "rows_129", "rows_1000"])
 @pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_mxu",
                                   "rows_scatter_add_tiled"])
@@ -187,7 +188,7 @@ def test_tile_scatter_kernels_on_edge_cases(cuda, name, case, d):
         assert torch.equal(out, fn(idx, contrib, hw))
 
 
-@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("d", [8, 48])
 @pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_mxu",
                                   "rows_scatter_add_tiled"])
 def test_tile_scatter_kernels_reject_other_widths(cuda, name, d):
@@ -324,6 +325,92 @@ def test_core_backward_through_bf16_scatters(cuda, impl):
         tda.set_deform_bwd("pallas")
     (gv, gl, ga), (rv, rl, ra) = grads
     torch.testing.assert_close(gv, rv, rtol=5e-2, atol=2e-2)
+    for ours, ref in ((gl, rl), (ga, ra)):
+        assert (ours - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()
+
+
+# the widened decoder layer of m at layer_scale 2: d = 512 over 8 heads
+WIDE_D = 64
+
+
+def test_deform_fwd_kernel_head_dim_64_out_of_range_is_exact_zero(cuda):
+    """Head dim 64: locations far outside the map give exact zeros in both
+    32-channel slices of every head."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, WIDE_D, M_SHAPES, M_POINTS, torch.bfloat16)
+    far = torch.tensor([-0.6, 1.7, -1e9, 1e9], device=cuda)
+    loc = far[torch.randint(0, 4, loc.shape, device=cuda)]
+    out = ms_deform_attn_fwd(value, M_SHAPES, loc, att, M_POINTS)
+    assert out.shape == (2, 300, 8 * WIDE_D) and torch.count_nonzero(out).item() == 0
+
+
+@pytest.mark.parametrize("name", ["rows_scatter_add", "rows_scatter_add_mxu",
+                                  "rows_scatter_add_tiled"])
+def test_wide_scatter_kernels_at_train_shape(cuda, name):
+    """D = 64 at the train step's shapes (m@640, B = 8, 500 queries), one
+    launch a call: ``rows_scatter_add`` within atol 1e-4, rtol 1e-5 of its
+    plain version, ``_mxu`` within atol 1e-5, rtol 1e-6 of the bf16 plain
+    version, ``_tiled`` bit-equal to the bf16 plain version on the CPU and
+    to its own second run; every entry on one row agrees at atol 1e-3, rtol
+    1e-4 (a sum of thousands of terms in another f32 order), bit for bit
+    for ``_tiled``."""
+    from dfine_tpu_torch.ops.kernels import scatter_rows as sr
+
+    fn = getattr(sr, name)
+    plain = sr.rows_scatter_add_plain if name == "rows_scatter_add" else \
+        sr.rows_scatter_add_bf16_plain
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for n, hw in ((6000, 6400), (12000, 1600), (6000, 400)):
+        idx = torch.randint(-1, hw, (64, n), device=cuda, generator=g, dtype=torch.int32)
+        contrib = torch.randn((64, n, WIDE_D), device=cuda, generator=g)
+        before = fn.launches
+        out = fn(idx, contrib, hw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and out.shape == (64, hw, WIDE_D)
+        one = torch.full_like(idx, hw // 2)
+        if name == "rows_scatter_add_tiled":
+            assert torch.equal(out.cpu(), plain(idx.cpu(), contrib.cpu(), hw))
+            assert torch.equal(out, fn(idx, contrib, hw))
+            assert torch.equal(fn(one, contrib, hw).cpu(), plain(one.cpu(), contrib.cpu(), hw))
+            continue
+        tol = dict(atol=1e-4, rtol=1e-5) if name == "rows_scatter_add" else \
+            dict(atol=1e-5, rtol=1e-6)
+        torch.testing.assert_close(out, plain(idx, contrib, hw), **tol)
+        torch.testing.assert_close(fn(one, contrib, hw), plain(one, contrib, hw),
+                                   atol=1e-3, rtol=1e-4)
+    assert torch.count_nonzero(fn(torch.full_like(idx, -1), contrib, hw)).item() == 0
+
+
+@pytest.mark.parametrize("impl", ["pallas", "mxu", "tiled"])
+def test_core_backward_head_dim_64(cuda, impl):
+    """MSDeformAttnCore at head dim 64 with each value-gradient scatter
+    against autograd of the plain core: location and attention gradients
+    within 2e-4 of the largest; value gradients within 2e-4 of the largest
+    for the f32 payload, and within rtol 5e-2, atol 2e-2 for the bf16 ones
+    (test_pallas_scatter.py:139-141); the chosen kernel launches once per
+    level at D = 64."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, WIDE_D, M_SHAPES, M_POINTS, torch.float32)
+    g_out = torch.randn((2, 300, 8 * WIDE_D), device=cuda)
+    kernel = tda._SCATTERS[impl]
+    grads = []
+    tda.set_deform_bwd(impl)
+    try:
+        before = kernel.launches
+        for fn in (tda.ms_deform_attn, tda.ms_deform_attn_core):
+            v, l, a = (t.clone().requires_grad_() for t in (value, loc, att))
+            (fn(v, M_SHAPES, l, a, M_POINTS) * g_out).sum().backward()
+            grads.append((v.grad, l.grad, a.grad))
+        assert kernel.launches == before + len(M_SHAPES)
+    finally:
+        tda.set_deform_bwd("pallas")
+    (gv, gl, ga), (rv, rl, ra) = grads
+    if impl == "pallas":
+        assert (gv - rv).abs().max().item() <= 2e-4 * rv.abs().max().item()
+    else:
+        torch.testing.assert_close(gv, rv, rtol=5e-2, atol=2e-2)
     for ours, ref in ((gl, rl), (ga, ra)):
         assert (ours - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()
 

@@ -12,14 +12,19 @@ f32, att [B, Q, 8, P] f32 softmaxed, num_points), from a seed:
   fall just outside the map;
 - ``one_level``: one level (9 x 13) of 4 points;
 - ``n_points``: head dim 16 with points (6, 6) on two levels, as in the n
-  model.
+  model;
+- ``head_dim_64``: head dim 64 (the widened decoder layers past
+  ``eval_idx`` at ``layer_scale`` 2) with points (3, 6, 3) on three levels,
+  locations on pixel edges and centres as in ``pixel_edges``;
+- ``four_levels``: points (3, 6, 3, 3) on four levels, the last one
+  extra-level-sized (2 x 2), head dim 32.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-DEFORM_CASES = ("pixel_edges", "one_level", "n_points")
+DEFORM_CASES = ("pixel_edges", "one_level", "n_points", "head_dim_64", "four_levels")
 HEADS = 8
 
 
@@ -36,12 +41,16 @@ def deform_case(name: str, b: int = 2, q: int = 17, seed: int = 0):
         d, shapes, pts = 32, ((9, 13),), (4,)
     elif name == "n_points":
         d, shapes, pts = 16, ((10, 10), (5, 5)), (6, 6)
+    elif name == "head_dim_64":
+        d, shapes, pts = 64, ((12, 10), (6, 5), (3, 3)), (3, 6, 3)
+    elif name == "four_levels":
+        d, shapes, pts = 32, ((16, 16), (8, 8), (4, 4), (2, 2)), (3, 6, 3, 3)
     else:
         raise KeyError(name)
     s, p = sum(h * w for h, w in shapes), sum(pts)
     value = rng.normal(size=(b, s, HEADS, d)).astype(np.float32)
     loc = rng.uniform(-0.15, 1.15, (b, q, HEADS, p, 2)).astype(np.float32)
-    if name == "pixel_edges":
+    if name in ("pixel_edges", "head_dim_64"):
         start = 0
         for (h, w), n in zip(shapes, pts):
             for axis, size in ((0, w), (1, h)):

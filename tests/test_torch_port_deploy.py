@@ -289,15 +289,27 @@ def test_int8_modes_and_product():
 
 def test_kernel_limits_are_checked_before_the_card():
     """17 sampling points over n's 2 levels raise and name the limit 16; a
-    head dim of 64 raises; every shipped size passes."""
+    head dim the kernels refuse (48: n widened to 384) raises and names
+    ``decoder.hidden_dim // encoder.nhead``; m with ``layer_scale`` 2 (head
+    dim 64 in the wide layers) passes, and with ``encoder.nhead`` 4 as well
+    (head dim 128 in the wide layers) raises and names
+    ``decoder.layer_scale``; five levels raise; every shipped size passes."""
     from dfine_tpu_torch.models.dfine import DFINE
     from dfine_tpu_torch.ops.kernels import check_kernel_limits
 
+    wide = (("decoder.layer_scale", 2), ("decoder.eval_idx", 1))
     with torch.device("meta"):
         with pytest.raises(ValueError, match="at most 16"):
             check_kernel_limits(DFINE("n", 3, cfg_overrides=(("decoder.num_points", [8, 9]),)))
-        with pytest.raises(ValueError, match="head dim"):
-            check_kernel_limits(DFINE("n", 3, cfg_overrides=(("decoder.hidden_dim", 512),
-                                                             ("encoder.hidden_dim", 512))))
+        with pytest.raises(ValueError, match=r"head dim decoder\.hidden_dim // encoder\.nhead = 48"):
+            check_kernel_limits(DFINE("n", 3, cfg_overrides=(("decoder.hidden_dim", 384),
+                                                             ("encoder.hidden_dim", 384))))
+        check_kernel_limits(DFINE("m", 3, cfg_overrides=wide))
+        with pytest.raises(ValueError, match=r"layer 2: head dim decoder\.hidden_dim \* "
+                                             r"decoder\.layer_scale // encoder\.nhead = 128"):
+            check_kernel_limits(DFINE("m", 3, cfg_overrides=wide + (("encoder.nhead", 4),)))
+        with pytest.raises(ValueError, match="decoder.num_levels = 5"):
+            check_kernel_limits(DFINE("m", 3, cfg_overrides=(("decoder.num_levels", 5),
+                                                             ("decoder.num_points", [3] * 5))))
         for size in ("n", "s", "m", "l", "x"):
             check_kernel_limits(DFINE(size, 80, True))

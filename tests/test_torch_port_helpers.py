@@ -308,3 +308,91 @@ def write_dataset(root: Path, n: int, hw, seed: int, n_val: int = 0):
     for split, part in splits.items():
         (root / f"{split}.csv").write_text("".join(f"{x}\n" for x in part))
     return names
+
+
+# ------------------------------------- model variants: wide tail, extra levels --
+
+# n at 320 px, batch 2, G = 4 slots, as in test_torch_port_train_step
+VARIANT_SIZE, VARIANT_IMG, VARIANT_CLASSES, VARIANT_B, VARIANT_G = "n", 320, 5, 2, 4
+# the tolerances of test_torch_port_train_step: boxes and reference points
+# atol 5e-4, logits and corner logits atol 2e-3 (test_torch_parity.py:80-83)
+SET_TOL = {"pred_boxes": dict(atol=5e-4, rtol=1e-3), "pred_logits": dict(atol=2e-3, rtol=1e-2),
+           "pred_corners": dict(atol=2e-3, rtol=1e-2), "ref_points": dict(atol=5e-4, rtol=1e-3)}
+# A variant's step runs without LAB, as test_torch_port_train_options's
+# accumulated step does: a LAB scalar's gradient is one sum over a feature
+# map that a train-mode BatchNorm re-normalizes, so at random weights
+# AdamW's first moment of such a scalar is rounding-sized, and its relative
+# error (up to 0.17 seen, beside MU_REL_SCALAR's 0.15) measures rounding,
+# not the port.
+NO_LAB = (("backbone.use_lab", False),)
+
+
+def variant_batch(seed=4):
+    rng = np.random.default_rng(seed)
+    b, g = VARIANT_B, VARIANT_G
+    images = rng.uniform(size=(b, VARIANT_IMG, VARIANT_IMG, 3)).astype(np.float32)
+    targets = {"labels": rng.integers(0, VARIANT_CLASSES, (b, g)).astype(np.int32),
+               "boxes": rng.uniform(0.25, 0.6, (b, g, 4)).astype(np.float32),
+               "valid": np.asarray([[1, 1, 1, 0], [1, 1, 0, 0]], bool)}
+    return images, targets
+
+
+def torch_batch(images, targets):
+    return (torch.from_numpy(images.transpose(0, 3, 1, 2).copy()),
+            {k: torch.from_numpy(v.copy()) for k, v in targets.items()})
+
+
+def all_sets(ref, ours):
+    """(JAX, port) pairs of a train-mode output: final, aux, pre, encoder."""
+    return ([(ref, ours)] + list(zip(ref["aux_outputs"], ours["aux_outputs"]))
+            + [(ref["pre_outputs"], ours["pre_outputs"])]
+            + list(zip(ref["enc_aux_outputs"], ours["enc_aux_outputs"])))
+
+
+def compare_sets(ref, ours, pairs=lambda r, o: [(r, o)]):
+    """Each (JAX, port) pair of ``pairs(ref, ours)`` row-aligned by the
+    final layer's boxes, image by image: >= 98 % of queries matched 1:1,
+    values within SET_TOL."""
+    for bi in range(ours["pred_boxes"].shape[0]):
+        match, keep = align_by_box(np.asarray(ref["pred_boxes"])[bi],
+                                   ours["pred_boxes"][bi].numpy())
+        assert keep.mean() >= 0.98, f"only {keep.mean():.3f} of queries matched 1:1"
+        for r, o in pairs(ref, ours):
+            for k in set(r) & set(SET_TOL):
+                np.testing.assert_allclose(o[k][bi].numpy()[match[keep]],
+                                           np.asarray(r[k])[bi][keep], **SET_TOL[k],
+                                           err_msg=k)
+
+
+def variant_step_against_jax(jmodel, variables, overrides, noise=None):
+    """One train step of both from the same weights and ``variant_batch``
+    (and the CDN noise ``noise``, the JAX key patched by the caller):
+    ``check_step``; then the EMA model's eval outputs against JAX's
+    ``make_eval_step`` by ``compare_sets``."""
+    from dfine_tpu.train.criterion import CriterionConfig as JCrit
+    from dfine_tpu.train.optim import OptimConfig as JOpt
+    from dfine_tpu.train.optim import build_optimizer as jax_optimizer
+    from dfine_tpu.train.train_step import TrainState as JState
+    from dfine_tpu.train.train_step import make_eval_step as jax_eval_step
+    from dfine_tpu.train.train_step import make_train_step as jax_step
+
+    from dfine_tpu_torch.train.criterion import CriterionConfig
+    from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from dfine_tpu_torch.train.train_step import TrainState, make_eval_step, make_train_step
+
+    images, targets = variant_batch()
+    tx = jax_optimizer(variables["params"], JOpt())
+    jstate, jmetrics = jax.jit(jax_step(jmodel, tx, JCrit(num_classes=VARIANT_CLASSES)))(
+        JState.create(variables, tx), {"images": jnp.asarray(images),
+                                       "targets": jax.tree.map(jnp.asarray, targets)},
+        jax.random.key(0))
+    port = port_model_from(variables, VARIANT_SIZE, VARIANT_CLASSES, False, overrides)
+    state = TrainState.create(port, build_optimizer(port, OptimConfig()))
+    x, tgt = torch_batch(images, targets)
+    step = make_train_step(CriterionConfig(num_classes=VARIANT_CLASSES),
+                           compute_dtype=torch.float32)
+    state, metrics = step(state, {"images": x, "targets": tgt}, dn_noise=noise)
+    check_step(port, state, metrics, jstate, jmetrics, port_view(port, variables))
+    compare_sets(jax.jit(jax_eval_step(jmodel))(jstate, jnp.asarray(images)),
+                 make_eval_step()(state, x))
+    return port

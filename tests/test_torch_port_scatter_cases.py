@@ -3,7 +3,9 @@
 imports numpy only, so that it loads on the card's machine, which has no
 JAX. This file holds no tests.
 
-Each case is (idx [R, N] int32, contrib [R, N, d] f32, hw), from a seed:
+Each case is (idx [R, N] int32, contrib [R, N, d] f32, hw), from a seed, at
+any head dim ``d``; ``CASE_WIDTHS`` are the ones the kernels take (64: the
+widened decoder layers past ``eval_idx`` at ``layer_scale`` 2):
 
 - ``hw_edges``: hw = 1500, a multiple of neither the JAX kernels' 512-row
   tiles nor the CUDA kernels' 128-row tiles; entries at 0, at hw - 1, at the
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 EDGE_CASES = ("hw_edges", "dense_duplicates", "long_n", "clustered")
+CASE_WIDTHS = (16, 32, 64)
 
 
 def scatter_case(name: str, d: int, seed: int = 0):
