@@ -21,6 +21,8 @@ Phases, each printed as one JSON line:
    (the value gradient of the deformable attention: ``rows_scatter_add``,
    ``_mxu`` and ``_tiled``) run at the train step's shapes and at head dim
    16, ``_tiled`` also bit for bit against its plain version on the CPU;
+   one call of each, at every head dim, must be its kernel alone: the call
+   captured in a CUDA graph and the graph's nodes counted (no profiler);
 3. model: the m det+seg model on the card, fp32, against the same weights
    on the CPU through the plain path;
 4. serving: ``TorchModel`` (m det+seg, bf16) answers 720p BGR frames, with
@@ -28,8 +30,22 @@ Phases, each printed as one JSON line:
 5. gradient: one backward of the m det+seg model at batch 8, through the
    ``MSDeformAttnCore`` backward and its scatter kernel, counts read around it;
 6. train: the m detect train step (``make_train_step``: CDN queries,
-   Hungarian matching, criterion, AdamW, EMA) at 640 px, batch 8, bf16
-   autocast over fp32 parameters, with its kernel launches counted per step;
+   Hungarian matching on the device, criterion, AdamW, EMA) at 640 px,
+   batch 8, bf16 autocast over fp32 parameters, with its kernel launches
+   counted per step (1 solver launch a step) and the solver's device ms a
+   step (CUDA events around it, and its kernel in a profile);
+6b. hungarian: one more train step with its matching span (matching_cost,
+   the solver, the go union) under ``set_sync_debug_mode("error")``; the
+   Hungarian kernel (``csrc/hungarian_lap.cu``) against its plain version
+   on the card and on the CPU, assignment for assignment, on that step's
+   [6, 8, 100, 300] costs, on random problems (pad rows, an image without
+   a valid row, square, G = 1, Q = 40, 300 and 500) and on the one-to-many
+   costs with +1e6 blocks; on integer costs (ties) the same optimum;
+   scipy's optimum on every case; its time beside the plain version's on
+   the card, the path it replaced (the costs to the host, scipy's 48
+   solves) and its bound; one kernel a call by the graph count, a CUDA
+   graph of it replayed against eager; the train step timed with it and
+   with the replaced host path, in turns;
 7. scatter_in_situ: the three row scatter-adds and ``index_add_`` on the
    inputs that one more train step gives the default backward, with how
    their destinations cluster;
@@ -99,14 +115,17 @@ Data parallelism (``phase_dp``; two ranks on one card measure no scaling):
 19. dp: (a) the m det+seg DP step (bf16, batch 8, SyncBN forced) in a
     one-rank NCCL group against the plain step on the same weights, batch
     and CDN noise (loss within 1e-6, gradients within the bf16 limit of
-    phase 8), then timed beside the plain step with its launches a step;
+    phase 8), then timed beside the plain step with its launches a step,
+    and in turns with the same DP step on the flat optimizer (p50, p90 and
+    device busy ms of each);
     (b) two processes sharing the card over gloo (picked because both see
     one device UUID): the fp32 DP step on 2 x 4 rows against the
     single-process step on the 8 rows (loss, grad norm, parameters at
     tests/test_multichip.py's tolerances), both ranks bit-equal after it,
     each rank's launches and its first sampling and scatter calls against
-    their plain versions; (c) ``python -m dfine_tpu_torch.apps.train``'s
-    main in two processes with ``train.dp.multihost`` on the trainer
+    their plain versions; then one flat-optimizer DP step of each rank
+    against the single-process flat step by the same rules; (c) ``python
+    -m dfine_tpu_torch.apps.train``'s main in two processes with ``train.dp.multihost`` on the trainer
     phase's dataset (each train frame once, batch 4, one epoch): equal
     ranks, every val frame gathered once, the final metrics equal to a
     single-process eval of ``last.ckpt``, no file written by rank 1 (an
@@ -341,6 +360,9 @@ EXTRA_OVERRIDES = (("decoder.num_levels", EXTRA_LEVELS), ("decoder.num_points", 
 # (2e-5) and far above the f32 rounding of an update (tests/
 # test_torch_port_flat_optim.py holds the same limit on the CPU)
 FLAT_STEPS, FLAT_ATOL = 3, 1e-6
+# the m train step timed with the device solver and with the host scipy path
+# it replaced, in turns (device, scipy, scipy, device) this many times
+HUNGARIAN_STEP_TURNS = 10
 # packages the port may use where present, never needs: the run reports which import
 OPTIONAL_PACKAGES = ("PIL", "matplotlib", "yaml", "imageio", "torchvision")
 
@@ -430,7 +452,8 @@ def profile_window(fn, n: int, top: int = 8) -> dict:
             "ours": {e.key: {"ms_per_launch": e.self_device_time_total / 1e3 / e.count,
                              "count_per_call": e.count / n}
                      for e in rows
-                     if "ms_deform_attn_fwd_kernel" in e.key or "rows_scatter_add" in e.key}}
+                     if any(k in e.key for k in ("ms_deform_attn_fwd_kernel", "rows_scatter_add",
+                                                 "hungarian_lap_kernel"))}}
 
 
 def timings(prefix: str, fn, iters: int) -> dict:
@@ -731,6 +754,73 @@ def _kernels_of(fn, calls: int = 10) -> list:
     return names
 
 
+GRAPH_NODE_TYPES = ("KERNEL", "MEMSET", "MEMCPY", "HOST", "EMPTY", "GRAPH", "EVENT_RECORD",
+                    "WAIT_EVENT", "MEM_ALLOC", "MEM_FREE", "CONDITIONAL", "BATCH_MEM_OP")
+
+
+def graph_nodes(fn) -> list:
+    """The work one call of ``fn`` puts on the stream, without the profiler:
+    the call captured in a CUDA graph (after a warm-up call on a side
+    stream, which builds the kernels), the graph kept uninstantiated and
+    written out by ``debug_dump`` (cudaGraphDebugDotPrint) and read back. One (type, text)
+    pair a node: its type the first node-type word of its label (KERNEL,
+    MEMSET, ...; "?" where none), its text the label itself, which names
+    the kernel. Allocations in the capture come from the graph's pool and
+    add no node."""
+    import tempfile
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # the captured graph, not instantiated
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del graph
+    nodes = dot_nodes(dot)
+    if not nodes:
+        raise AssertionError(f"graph_nodes: no node read from the dump: {dot[:800]!r}")
+    return nodes
+
+
+def dot_nodes(dot: str) -> list:
+    """(type, label) of each node definition of a graph's DOT text (a line
+    opening with a node's name and its attributes; edges open with a name
+    and an arrow)."""
+    starts = list(re.finditer(r'(?m)^\s*"graph_\d+_node_\d+"\s*\[', dot))
+    nodes = []
+    for k, m in enumerate(starts):
+        text = dot[m.end(): starts[k + 1].start() if k + 1 < len(starts) else len(dot)]
+        text = text.split("];")[0]
+        kind = re.search(r"\b(" + "|".join(GRAPH_NODE_TYPES) + r")\b", text)
+        nodes.append((kind.group(1) if kind else "?", text))
+    return nodes
+
+
+def one_kernel(fn, symbol: str, what: str) -> list:
+    """Raise unless one call of ``fn`` is a single kernel node naming
+    ``symbol`` (no fill, copy or second kernel beside it); returns the
+    nodes' types and kernel symbols."""
+    nodes = graph_nodes(fn)
+    named = [(kind, (re.findall(r"_Z\w*" + symbol + r"\w*", text) or [text[:120]])[0])
+             for kind, text in nodes]
+    if len(nodes) != 1 or nodes[0][0] not in ("KERNEL", "?") or symbol not in nodes[0][1]:
+        raise AssertionError(f"{what}: one call is {len(nodes)} graph nodes {named}, want its "
+                             f"{symbol} kernel alone")
+    return named
+
+
 def _scatter(res, name, d=HEAD_DIM):
     """A row scatter-add kernel against its plain version at the train
     step's shapes (f32 payload for ``rows_scatter_add``, bf16 for ``_mxu``
@@ -806,15 +896,11 @@ def _scatter(res, name, d=HEAD_DIM):
                          + r * hw * d * 4)
         tot["flops"] += int((idx >= 0).sum().item()) * d
         levels.append(level)
-    # one call is one kernel: no fill of the output, no sort or gather around it
-    # (at another D the wrapper launches alike; tests/test_torch_port_cuda.py
-    # checks each D too, so a profile whose windows were all dropped is
-    # reported there as None, not failed)
-    activities = _kernels_of(lambda: fn(idx, contrib, hw))
-    if not activities and d != HEAD_DIM:
-        activities = None
-    elif len(activities) != 1 or "rows_scatter_add" not in activities[0]:
-        raise AssertionError(f"{name}: one call ran {activities}, want its kernel alone")
+    # one call is one kernel, at every D: no fill of the output, no sort or
+    # gather around it (counted in a CUDA graph of the call, not by CUPTI,
+    # which dropped whole profiler windows of D = 64 calls late in a run)
+    activities = one_kernel(lambda: fn(idx, contrib, hw), "rows_scatter_add",
+                            f"{name} at D = {d}")
     if d == HEAD_DIM:
         # head dim 16 (the n model): the first level of n@640, and an unsupported D raises
         (h, w), p = N_SHAPES[0], N_POINTS[0]
@@ -1032,7 +1118,7 @@ def phase_gradient(res):
           **profile_window(step, 2)})
     want = {"ms_deform_attn_fwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 0}
     if counts != want or not finite or stem_grad is None or not stem_grad.abs().sum().item() > 0:
         raise AssertionError(f"gradient path: counts {counts} (want {want}), finite {finite}")
 
@@ -1070,9 +1156,11 @@ def make_train_batch(batch: int, seed: int, device, masks: bool = False):
     return {"images": images.to(device), "targets": {k: v.to(device) for k, v in targets.items()}}
 
 
-def _train_setup(compute_dtype, model=None, seg=False, optim=None, update_mask=None):
+def _train_setup(compute_dtype, model=None, seg=False, optim=None, update_mask=None,
+                 flat=False):
     """A TrainState (fp32 parameters) and its step: the m detect model, or
-    ``model``; ``seg`` adds the ``masks`` loss (and builds the mask head)."""
+    ``model``; ``seg`` adds the ``masks`` loss (and builds the mask head);
+    ``flat``: the flat optimizer (``build_optimizer(flat=True)``)."""
     from dfine_tpu_torch.models.dfine import build_model
     from dfine_tpu_torch.train.criterion import CriterionConfig
     from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
@@ -1081,7 +1169,7 @@ def _train_setup(compute_dtype, model=None, seg=False, optim=None, update_mask=N
     if model is None:
         model = build_model(SIZE, NUM_CLASSES, seg, device=DEV)
     losses = ("vfl", "boxes", "local") + (("masks",) if seg else ())
-    state = TrainState.create(model, build_optimizer(model, optim or OptimConfig()))
+    state = TrainState.create(model, build_optimizer(model, optim or OptimConfig(), flat=flat))
     step = make_train_step(CriterionConfig(num_classes=NUM_CLASSES, losses=losses),
                            compute_dtype=compute_dtype, update_mask=update_mask)
     return state, step
@@ -1117,36 +1205,31 @@ def _noise(batch: int, seed: int):
 
 
 @contextlib.contextmanager
-def timed_matching(acc: dict):
-    """Add up, in ``acc``, the host seconds of the train step's Hungarian
-    matching: the wait for the device to finish the forward (the costs'
-    copy to the host has to wait for it anyway), the copy and the solves,
-    and scipy's solves alone."""
+def timed_matching(events: list):
+    """Keep, in ``events``, a pair of CUDA events recorded on the stream
+    around each call of the train step's Hungarian solver
+    (``matcher.hungarian``: one launch for all S x B problems and the cast
+    of its answer) while the context is open; the events are read after
+    the steps have synchronised, so the timing adds no sync."""
+    import torch
+
     from dfine_tpu_torch import matcher
 
-    orig_h, orig_lsa = matcher.hungarian, matcher.linear_sum_assignment
+    orig = matcher.hungarian
 
     def hungarian(*args, **kw):
-        t0 = time.perf_counter()
-        sync()
-        t1 = time.perf_counter()
-        out = orig_h(*args, **kw)
-        acc["wait_s"] += t1 - t0
-        acc["copy_solve_s"] += time.perf_counter() - t1
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kw)
+        end.record()
+        events.append((start, end))
         return out
 
-    def lsa(*args, **kw):
-        t0 = time.perf_counter()
-        out = orig_lsa(*args, **kw)
-        acc["scipy_s"] += time.perf_counter() - t0
-        acc["problems"] += 1
-        return out
-
-    matcher.hungarian, matcher.linear_sum_assignment = hungarian, lsa
+    matcher.hungarian = hungarian
     try:
-        yield acc
+        yield events
     finally:
-        matcher.hungarian, matcher.linear_sum_assignment = orig_h, orig_lsa
+        matcher.hungarian = orig
 
 
 def phase_train(res):
@@ -1167,10 +1250,10 @@ def phase_train(res):
     e0 = {k: v.detach().clone() for k, v in state.ema.named_parameters()}
     want = {"ms_deform_attn_fwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     times, per_step, metrics, total = [], [], [], {k: 0 for k in want}
-    match = {"wait_s": 0.0, "copy_solve_s": 0.0, "scipy_s": 0.0, "problems": 0}
-    with timed_matching(match):
+    solver_events = []
+    with timed_matching(solver_events):
         for _ in range(TRAIN_STEPS):
             reset_launch_counts()  # the main path of this slice: one train step
             t = time.perf_counter()
@@ -1183,10 +1266,8 @@ def phase_train(res):
                 total[k] += counts[k]
             metrics.append({k: float(v) for k, v in m.items()})
     res["train_counts"] = total
-    matching = {"wait_for_device_ms": match["wait_s"] * 1e3 / TRAIN_STEPS,
-                "copy_and_solve_ms": match["copy_solve_s"] * 1e3 / TRAIN_STEPS,
-                "scipy_ms": match["scipy_s"] * 1e3 / TRAIN_STEPS,
-                "problems_per_step": match["problems"] / TRAIN_STEPS}
+    solver = {"event_span_ms": sum(a.elapsed_time(b) for a, b in solver_events) / TRAIN_STEPS,
+              "calls_per_step": len(solver_events) / TRAIN_STEPS}
     p50, p90 = percentiles(times)
     finite = all(np.isfinite(list(m_.values())).all() for m_ in metrics)
     grads_finite = all(torch.isfinite(p.grad).all().item() for p in state.model.parameters()
@@ -1197,12 +1278,15 @@ def phase_train(res):
           "batch": TRAIN_BATCH, "gt_slots": TRAIN_G, "steps": TRAIN_STEPS,
           "step_p50_ms": p50, "step_p90_ms": p90, "metrics_first": metrics[0],
           "metrics_last": metrics[-1], "launches_per_step": per_step[0],
-          "launches_total": total, "hungarian_host_per_step": matching,
+          "launches_total": total, "hungarian_device_per_step": solver,
           "params_moved": moved, "ema_moved": ema_moved,
           "n_params": len(p0), "losses_finite": finite, "grads_finite": grads_finite})
     prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
     res["train_in_situ"] = prof["ours"]
-    emit({"phase": "train_profile", "what": "one train step", **prof})
+    solver["profiled_kernel_ms"] = in_situ_ms(res, "hungarian_lap_kernel")
+    res["train_solver"] = solver
+    emit({"phase": "train_profile", "what": "one train step",
+          "hungarian_device_per_step": solver, **prof})
     res["train_run"] = (state, step, batch, gen)
     bad = [c for c in per_step if c != want]
     if bad or not finite or not grads_finite:
@@ -1296,6 +1380,216 @@ def phase_scatter_in_situ(res):
           "what": f"the {len(calls)} scatter inputs of one {SIZE} detect train step (batch "
                   f"{TRAIN_BATCH}, bf16): ms summed over the step, by CUDA events; library = "
                   "index_add_ of the f32 payload", "ms_per_step": total, "levels": levels})
+
+
+@contextlib.contextmanager
+def captured_matching(calls: list):
+    """Run the criterion's matching span (``matching_cost``, then
+    ``solve_matchings``: the solver and the go union) under
+    ``torch.cuda.set_sync_debug_mode("error")`` while the context is open,
+    so that a synchronisation anywhere in it raises; keep copies of the
+    costs and masks it solved in ``calls``."""
+    import torch
+
+    from dfine_tpu_torch.train import criterion as crit
+
+    cost_fn, solve_fn = crit.matching_cost, crit.solve_matchings
+
+    def strict(fn):
+        def call(*args, **kw):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return call
+
+    def solve(costs, valid):
+        out = strict(solve_fn)(costs, valid)
+        calls.append((costs.detach().clone(), valid.clone()))
+        return out
+
+    crit.matching_cost, crit.solve_matchings = strict(cost_fn), solve
+    try:
+        yield calls
+    finally:
+        crit.matching_cost, crit.solve_matchings = cost_fn, solve_fn
+
+
+def _scipy_path(costs, valid):
+    """The port's matching before the device solver, as the yardstick of
+    what the kernel replaces: the costs copied to the host, scipy's
+    ``linear_sum_assignment`` on each (set, image) problem's valid rows,
+    the answer copied back."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    c = costs.detach().float().cpu().numpy()
+    v = valid.cpu().numpy()
+    s, b, g, _ = c.shape
+    out = np.full((s, b, g), -1, np.int64)
+    for bi in range(b):
+        rows = np.flatnonzero(v[bi])
+        if rows.size:
+            for si in range(s):
+                r, col = linear_sum_assignment(c[si, bi][rows])
+                out[si, bi, rows[r]] = col
+    return torch.from_numpy(out).to(costs.device)
+
+
+def phase_hungarian(res):
+    """The exact Hungarian solver (``csrc/hungarian_lap.cu``) on the card:
+    one more m train step (phase_train's state, batch and generator) with
+    its matching span under sync debug mode "error" and its [S, B, G, Q]
+    costs kept; the kernel held against its plain version on the card and
+    on a CPU copy, assignment for assignment, on those costs, on random
+    problems (pad rows, an image without a valid row, square, G = 1,
+    Q = 40, 300 and 500), on the one-to-many costs with the first round's
+    queries blocked by +1e6 (and ``match_one_to_many``'s three rounds, card
+    against CPU), and on integer costs (ties: the same optimum, the
+    assignments' equality reported); scipy's optimum on every case. On the
+    step's costs: the kernel's time, the plain version's on the card, the
+    path it replaces (copy to the host and scipy's S x B solves), the bound
+    (the valid cost rows read once), one kernel a call by the graph count,
+    and a CUDA graph of the solver replayed against eager. Then the whole
+    step timed with the device solver and with that replaced path, in
+    turns."""
+    import torch
+
+    from dfine_tpu_torch.matcher import match_one_to_many
+    from dfine_tpu_torch.ops.hungarian import hungarian as plain
+    from dfine_tpu_torch.ops.kernels import hungarian_lap
+
+    _tests_on_path()
+    from test_torch_port_hungarian_cases import CASES, assert_optimal, hungarian_case, integer_case
+
+    state, step, batch, gen = res["train_run"]
+    calls = []
+    with captured_matching(calls):  # raises on a sync in the matching span
+        step(state, batch, gen)
+    sync()
+    costs, valid = calls[0]
+    s_, b_, g_, q_ = costs.shape
+    dev = costs.device
+    cases, failures, max_err = {}, [], 0
+
+    def hold(tag, cost, valid, ties=False):
+        nonlocal max_err
+        got = hungarian_lap(cost, valid).cpu()
+        on_card = plain(cost, valid).cpu()
+        on_cpu = plain(cost.cpu(), valid.cpu())
+        equal = torch.equal(got, on_card) and torch.equal(got, on_cpu)
+        c_np, v_np = cost.cpu().numpy(), valid.cpu().numpy()
+        try:
+            assert_optimal(c_np, v_np, got.numpy(), rtol=0 if ties else 1e-6)
+            optimum = True
+        except AssertionError:
+            optimum = False
+        cases[tag] = {"shape": list(cost.shape), "valid_rows": int(v_np.sum()),
+                      "equal_to_plain": equal, "scipy_optimum": optimum}
+        if ties:
+            def total(cols):  # the assignment's cost over the valid rows, in float64
+                picked = np.take_along_axis(c_np, np.clip(cols, 0, None)[..., None], -1)[..., 0]
+                return np.where(v_np[None], picked, 0.0).astype(np.float64).sum()
+
+            cases[tag]["same_total_as_plain"] = bool(total(got.numpy())
+                                                     == total(on_cpu.numpy()))
+            if not (optimum and cases[tag]["same_total_as_plain"]):
+                failures.append(tag)
+        else:
+            max_err = max(max_err, int((got - on_cpu).abs().max()) if got.numel() else 0)
+            if not (equal and optimum):
+                failures.append(tag)
+
+    hold("train_step_costs", costs, valid)
+    for case in CASES:
+        cost, v = hungarian_case(case)
+        hold(case, torch.from_numpy(cost).to(dev), torch.from_numpy(v).to(dev))
+    for g, q in ((12, 40), (40, 40), (100, 300)):
+        cost, v = integer_case(g, q)
+        hold(f"integer_g{g}_q{q}", torch.from_numpy(cost).to(dev), torch.from_numpy(v).to(dev),
+             ties=True)
+    first = hungarian_lap(costs, valid).long()
+    blocked = torch.zeros((s_, b_, q_ + 1), dtype=torch.bool, device=dev)
+    blocked.scatter_(2, torch.where(first >= 0, first, q_), True)
+    round2 = costs + torch.where(blocked[..., None, :q_], 1e6, 0.0)
+    hold("one_to_many_round2", round2, valid)
+    o2m = match_one_to_many(costs, valid, 3)
+    o2m_equal = torch.equal(o2m.cpu(), match_one_to_many(costs.cpu(), valid.cpu(), 3))
+    if not o2m_equal:
+        failures.append("match_one_to_many card vs CPU")
+
+    # times on the step's own costs
+    kernel = timings("", lambda: hungarian_lap(costs, valid), 50)
+    plain_t = timings("plain_", lambda: plain(costs, valid), 3)
+    for _ in range(2):
+        _scipy_path(costs, valid)
+    scipy_s = []
+    for _ in range(10):
+        sync()
+        t = time.perf_counter()
+        _scipy_path(costs, valid)
+        sync()
+        scipy_s.append(time.perf_counter() - t)
+    n_valid = int(valid.sum())
+    # the least work: each valid cost row read once, the mask read, the answer written
+    nbytes = s_ * n_valid * q_ * 4 + b_ * g_ + s_ * b_ * g_ * 4
+    bound_ms, bound_by = bound(nbytes, s_ * n_valid * q_)
+    jmin = costs.argmin(-1).cpu().numpy()
+    v_np = valid.cpu().numpy()
+    pending = sum(int(v_np[bi].sum()) - len(set(jmin[si, bi][v_np[bi]].tolist()))
+                  for si in range(s_) for bi in range(b_))
+    nodes = one_kernel(lambda: hungarian_lap(costs, valid), "hungarian_lap", "hungarian_lap")
+
+    # the whole train step with the device solver and with the path it
+    # replaced (matcher.hungarian swapped for the host copy and scipy), in turns
+    from dfine_tpu_torch import matcher
+
+    device_solver, step_s = matcher.hungarian, {"device": [], "scipy_host": []}
+    try:
+        for _ in range(HUNGARIAN_STEP_TURNS):
+            for path in ("device", "scipy_host", "scipy_host", "device"):
+                matcher.hungarian = device_solver if path == "device" else _scipy_path
+                sync()
+                t = time.perf_counter()
+                step(state, batch, gen)
+                sync()
+                step_s[path].append(time.perf_counter() - t)
+    finally:
+        matcher.hungarian = device_solver
+    steps = {f"{k}_step_p{q}_ms": v for k, ts in step_s.items()
+             for q, v in zip((50, 90), percentiles(ts))}
+
+    # a CUDA graph of the solver, replayed on other costs copied into its input
+    static = costs.clone()
+    hungarian_lap(static, valid)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = hungarian_lap(static, valid)
+    static.copy_(round2)
+    graph.replay()
+    sync()
+    graph_equal = torch.equal(graphed, hungarian_lap(round2, valid))
+    if not graph_equal:
+        failures.append("graph replay")
+    del graph
+
+    res["hungarian"] = {
+        "max_abs_err": max_err, **kernel, **plain_t,
+        "scipy_host_ms": percentiles(scipy_s)[0], "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "hungarian", "shape": f"m@640 train step: S={s_} sets x B={b_} images, "
+                                         f"G={g_} slots, Q={q_}",
+          "valid_rows_per_set": n_valid, "pending_rows_after_reduction": pending,
+          **res["hungarian"], "scipy_host_p90_ms": percentiles(scipy_s)[1],
+          "train_step_in_turns": {**steps, "steps_each": 2 * HUNGARIAN_STEP_TURNS},
+          "max_abs_err_is": "largest |column difference| to the plain version on the CPU",
+          "graph_nodes_per_call": nodes, "graph_replay_equal": graph_equal,
+          "one_to_many_card_equal_cpu": o2m_equal, "matching_span_sync_free": True,
+          "cases": cases})
+    if failures:
+        raise AssertionError(f"hungarian: failed {failures}")
 
 
 def _unclipped_grads(state, metrics):
@@ -1712,7 +2006,7 @@ def phase_train_seg(res):
     e0 = {k: v.detach().clone() for k, v in state.ema.named_parameters()}
     want = {"ms_deform_attn_fwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     times, per_step, total, terms = [], [], {k: 0 for k in want}, []
     torch.cuda.reset_peak_memory_stats()
     with captured_losses(terms):
@@ -1793,7 +2087,7 @@ def phase_train_l_frozen(res):
     frozen = {k for k, keep in mask.items() if not keep}
     batch = make_train_batch(L_BATCH, seed=9, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    want = {"ms_deform_attn_fwd": L_DECODER_LAYERS,
+    want = {"ms_deform_attn_fwd": L_DECODER_LAYERS, "hungarian_lap": 1,
             "rows_scatter_add": L_DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
     checks, failures, per_step, times = [], [], [], []
@@ -2501,7 +2795,7 @@ def _trainer_run(trainer) -> dict:
     eval_batches = sum(-(-e["images"] // bs) for e in trainer.timing["eval"])
     want = {"ms_deform_attn_fwd": DECODER_LAYERS * (steps + eval_batches),
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": steps}
     if counts != want:
         raise AssertionError(f"trainer: launches {counts}, want {want} ({steps} steps, "
                              f"{eval_batches} eval batches)")
@@ -2747,7 +3041,7 @@ def _dp_step_counts() -> dict:
     """The launches of one det+seg train step."""
     return {"ms_deform_attn_fwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
 
 
 def _free_port() -> int:
@@ -2767,9 +3061,12 @@ def _dp_world1(res, failures) -> dict:
     (within 1e-6) and each parameter's gradient within the bf16 limit of
     phase_train_bwd_variants (VARIANT_GRAD_REL plus twice the larger of
     CONTROLS more plain steps; the one-element tensors and those nought to
-    rounding printed, not held). Then DP_STEPS timed DP steps, the launch
-    counts set to 0 before each and read after, and as many plain steps
-    (SyncBN off: what one process trains with)."""
+    rounding printed, not held). Then DP_STEPS timed DP steps with the
+    four-group optimizer and as many with the flat one
+    (``build_optimizer(flat=True)``: its gradient buffer all-reduced in
+    place), in turns, the launch counts set to 0 before each and read after,
+    with each one's device busy ms a step, and as many plain steps (SyncBN
+    off: what one process trains with)."""
     import torch
 
     from dfine_tpu_torch.models.layers import set_bn_axis
@@ -2798,23 +3095,33 @@ def _dp_world1(res, failures) -> dict:
             _, m = step(state, batch, dn_noise=noise)
             sync()
             runs[run] = (float(m["loss"]), _unclipped_grads(state, m))
-        times, per_step = [], []
+        flat_state, _ = _train_setup(torch.bfloat16, seg=True, flat=True)
+        flat_state.model.load_state_dict(base)
+        flat_state.ema.load_state_dict(base)
+        timed = {"group": (state, [], []), "flat": (flat_state, [], [])}
         gen = torch.Generator(device=DEV).manual_seed(0)
-        for _ in range(TRAIN_WARMUP):
-            step(state, batch, gen)
+        for st, _, _ in timed.values():
+            for _ in range(TRAIN_WARMUP):
+                step(st, batch, gen)
         sync()
+        finite = True
         for _ in range(DP_STEPS):
-            reset_launch_counts()  # the main path of this run: one DP step
-            t = time.perf_counter()
-            _, m = step(state, batch, gen)
-            sync()
-            times.append(time.perf_counter() - t)
-            per_step.append(launch_counts())
-        finite = bool(np.isfinite([float(v) for v in m.values()]).all())
+            for st, step_s, counts in timed.values():  # in turns: group, flat
+                reset_launch_counts()  # the main path of this run: one DP step
+                t = time.perf_counter()
+                _, m = step(st, batch, gen)
+                sync()
+                step_s.append(time.perf_counter() - t)
+                counts.append(launch_counts())
+                finite &= bool(np.isfinite([float(v) for v in m.values()]).all())
+        busy = {k: profile_window(lambda: (step(st, batch, gen), sync()), 2)["device_busy_ms"]
+                for k, (st, _, _) in timed.items()}
+        _, times, per_step = timed["group"]
+        _, flat_times, flat_per_step = timed["flat"]
     finally:
         set_bn_axis(None)
         par.shutdown()
-    del state, step
+    del state, step, flat_state, timed
     state, step = _train_setup(torch.bfloat16, seg=True)
     for _ in range(TRAIN_WARMUP):
         step(state, batch, gen)
@@ -2838,10 +3145,12 @@ def _dp_world1(res, failures) -> dict:
            "control_losses_equal": all(runs[c][0] == loss0 for c in controls),
            "n_checked": len(rel), "n_exempt": len(exempt), "max_rel": max(rel.values()),
            "max_share_of_limit": max(share.values()), "worst_share": _worst(share, 3),
-           "step_p50_ms": p50, "step_p90_ms": p90,
+           "step_p50_ms": p50, "step_p90_ms": p90, "device_busy_ms": busy["group"],
+           "flat_step_p50_ms": percentiles(flat_times)[0],
+           "flat_step_p90_ms": percentiles(flat_times)[1], "flat_device_busy_ms": busy["flat"],
            "plain_step_p50_ms": percentiles(plain_times)[0],
            "plain_step_p90_ms": percentiles(plain_times)[1], "launches_per_step": per_step[0],
-           "metrics_finite": finite}
+           "flat_launches_per_step": flat_per_step[0], "metrics_finite": finite}
     if backend != "nccl":
         failures.append(f"world 1: backend {backend}, want nccl")
     if abs(runs["dp"][0] - loss0) > 1e-6 * abs(loss0):
@@ -2849,8 +3158,8 @@ def _dp_world1(res, failures) -> dict:
     bad = {k: v for k, v in share.items() if not v <= 1.0}
     if bad:
         failures.append(f"world 1: {len(bad)} gradients beyond their limits: {_worst(bad)}")
-    if any(c != _dp_step_counts() for c in per_step) or not finite:
-        failures.append(f"world 1: launches {per_step}, finite {finite}")
+    if any(c != _dp_step_counts() for c in per_step + flat_per_step) or not finite:
+        failures.append(f"world 1: launches {per_step}, flat {flat_per_step}, finite {finite}")
     res["dp_world1_counts"] = per_step[0]
     return out
 
@@ -2896,8 +3205,16 @@ for _ in range(cs.DP_STEPS):
     cs.sync()
     times.append(time.perf_counter() - t)
     per_step.append(launch_counts())
+del state
+model = build_model(cs.SIZE, cs.NUM_CLASSES, True, device=cs.DEV, cfg_overrides=cs.DP_OVERRIDES)
+flat_state = TrainState.create(model, build_optimizer(model, OptimConfig(), flat=True))
+reset_launch_counts()  # the main path of this rank's flat run: one DP step
+_, fm = step(flat_state, batch)
+cs.sync()
+flat = {"metrics": {k: float(v) for k, v in fm.items()}, "counts": launch_counts(),
+        "model": {k: v.detach().cpu() for k, v in flat_state.model.state_dict().items()}}
 torch.save({**first, "backend": backend, "step_s": times, "per_step": per_step,
-            "vs_plain": cs.calls_vs_plain(calls)}, f"{out}/rank{rank}.pt")
+            "vs_plain": cs.calls_vs_plain(calls), "flat": flat}, f"{out}/rank{rank}.pt")
 par.shutdown()
 print(f"RANK{rank}_OK")
 """
@@ -2955,7 +3272,9 @@ def _dp_gloo(res, failures) -> dict:
     formula over the whole batch) from the same weights; both ranks
     bit-equal after it; each rank's launches of its compared step and of
     DP_STEPS timed ones, and its first sampling and scatter calls against
-    their plain versions."""
+    their plain versions. Then the same with the flat optimizer
+    (``build_optimizer(flat=True)``): each rank's one DP step against the
+    single-process flat step on the 8 rows, by the same rules."""
     import tempfile
 
     import torch
@@ -2983,6 +3302,18 @@ def _dp_gloo(res, failures) -> dict:
     sync()
     ref = {k: v.detach() for k, v in state.model.state_dict().items()}
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    del state, model
+    model = build_model(SIZE, NUM_CLASSES, True, device=DEV, cfg_overrides=DP_OVERRIDES)
+    flat_state = TrainState.create(model, build_optimizer(model, OptimConfig(), flat=True))
+    set_bn_axis("dp")
+    try:
+        _, fm = step(flat_state, make_train_batch(TRAIN_BATCH, seed=7, device=DEV, masks=True))
+    finally:
+        set_bn_axis(None)
+    sync()
+    flat_ref = {k: v.detach() for k, v in flat_state.model.state_dict().items()}
+    flat_loss, flat_gnorm = float(fm["loss"]), float(fm["grad_norm"])
+    del flat_state, model
     a, b = (r["state"] for r in ranks)
     bit_equal = all(torch.equal(v, b[part][k]) for part in ("model", "ema")
                     for k, v in a[part].items())
@@ -3009,6 +3340,26 @@ def _dp_gloo(res, failures) -> dict:
             failures.append(f"gloo rank {i}: launches {r['counts']}, {r['per_step']}")
         if not all(v["ok"] for v in r["vs_plain"].values()):
             failures.append(f"gloo rank {i}: kernels vs plain {r['vs_plain']}")
+        f = r["flat"]
+        gap, far, stats_far, counters = _far_share(f["model"], flat_ref)
+        out[f"rank{i}_flat"] = {"loss": f["metrics"]["loss"],
+                                "grad_norm": f["metrics"]["grad_norm"], "param_max_gap": gap,
+                                "param_far_share": far, "bn_stats_beyond_tol": stats_far,
+                                "counters_equal": counters, "launches": f["counts"]}
+        if not (abs(f["metrics"]["loss"] - flat_loss) <= DP_LOSS_RTOL * abs(flat_loss)
+                and abs(f["metrics"]["grad_norm"] - flat_gnorm) <= DP_GNORM_RTOL * abs(flat_gnorm)):
+            failures.append(f"gloo rank {i} flat: loss {f['metrics']['loss']} / grad norm "
+                            f"{f['metrics']['grad_norm']} vs single {flat_loss} / {flat_gnorm}")
+        if gap > 2 * DP_LR + 2e-6 or far > DP_FAR_SHARE or stats_far > 0 or not counters:
+            failures.append(f"gloo rank {i} flat: parameters {out[f'rank{i}_flat']}")
+        if f["counts"] != _dp_step_counts():
+            failures.append(f"gloo rank {i} flat: launches {f['counts']}")
+    flat_equal = all(torch.equal(v, ranks[1]["flat"]["model"][k])
+                     for k, v in ranks[0]["flat"]["model"].items())
+    out.update(single_flat_loss=flat_loss, single_flat_grad_norm=flat_gnorm,
+               flat_ranks_bit_equal=flat_equal)
+    if not flat_equal:
+        failures.append("gloo flat: the ranks' parameters or buffers differ")
     if not bit_equal:
         failures.append("gloo: the ranks' parameters or buffers differ")
     res["dp_gloo_counts"] = [r["counts"] for r in ranks]
@@ -3131,7 +3482,8 @@ def _dp_trainer(res, failures) -> dict:
     want = [{"ms_deform_attn_fwd": DECODER_LAYERS * (steps + a["evals"] * len(
                 range(r, batches, 2))),
              "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
-             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0} for r in range(2)]
+             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": steps}
+            for r in range(2)]
     # a single-process eval of the written last.ckpt
     single_dir = os.path.join(root, "run_dp_single")
     os.makedirs(single_dir)
@@ -3259,9 +3611,9 @@ def counted(launches: dict, name: str):
 
 
 def _want_deform(counts: dict, n: int, name: str) -> None:
-    """``counts`` holds n sampling launches and no scatter launch."""
+    """``counts`` holds n sampling launches and no scatter or solver launch."""
     want = {"ms_deform_attn_fwd": n, "rows_scatter_add": 0, "rows_scatter_add_mxu": 0,
-            "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_tiled": 0, "hungarian_lap": 0}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, want {want}")
 
@@ -3789,7 +4141,7 @@ def phase_wide_tail(res):
     sync()
     want = {"ms_deform_attn_fwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     narrow = DECODER_LAYERS - WIDE_LAYERS
     want_widths = {("ms_deform_attn_fwd", HEAD_DIM): narrow,
                    ("ms_deform_attn_fwd", WIDE_HEAD_DIM): WIDE_LAYERS,
@@ -3940,7 +4292,7 @@ def phase_extra_level(res):
     moved = sum(int(not torch.equal(p0[k], v)) for k, v in model.named_parameters())
     want = {"ms_deform_attn_fwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * EXTRA_LEVELS,
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     finite = all(np.isfinite(float(v)) for v in m.values())
     extra_moved = not torch.equal(p0[f"decoder.input_proj.{EXTRA_LEVELS - 1}.conv.weight"],
                                   model.decoder.input_proj[EXTRA_LEVELS - 1].conv.weight)
@@ -4181,6 +4533,25 @@ def kernel_line(res):
          "wide_launches": wide_launches(res, name),
          "extra_level_launches": res["extra_counts"][name]}
         for name, line, counts, path, symbol in scatters
+    ] + [
+        {"name": "hungarian_lap", "route": "cuda",
+         "source": "dfine_tpu_torch/csrc/hungarian_lap.cu",
+         "replaces": "dfine_tpu/ops/hungarian.py:48",  # XLA _solve_one: no Pallas counterpart
+         "launches": res["train_counts"]["hungarian_lap"],
+         "path": f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one step's S x B "
+                 "problems)",
+         "train_seg_launches": res["train_seg_counts"]["hungarian_lap"],
+         "train_l_launches": res["train_l_counts"]["hungarian_lap"],
+         "trainer_launches": res["trainer_counts"]["hungarian_lap"],
+         "dp_launches": dp_launches(res, "hungarian_lap"),
+         "wide_launches": res["wide_counts"]["hungarian_lap"],
+         "extra_level_launches": res["extra_counts"]["hungarian_lap"],
+         "max_abs_err": res["hungarian"]["max_abs_err"], "ms": res["hungarian"]["ms"],
+         "plain_ms": res["hungarian"]["plain_ms"], "bound_ms": res["hungarian"]["bound_ms"],
+         "bound_by": res["hungarian"]["bound_by"], "library_ms": None,
+         "scipy_host_ms": res["hungarian"]["scipy_host_ms"],
+         "train_in_situ_ms": in_situ_ms(res, "hungarian_lap_kernel"),
+         "train_event_span_ms_per_step": res["train_solver"]["event_span_ms"]},
     ]}
 
 
@@ -4215,7 +4586,8 @@ def main() -> int:
     res, failed = {}, []
     for fn in (phase_build, phase_deform_fwd, phase_scatter, phase_scatter_mxu,
                phase_scatter_tiled, phase_core_backward, phase_model, phase_serving,
-               phase_gradient, phase_train, phase_scatter_in_situ, phase_train_bwd_variants,
+               phase_gradient, phase_train, phase_hungarian, phase_scatter_in_situ,
+               phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,
                phase_train_l_frozen, phase_wide_tail, phase_extra_level, phase_flat_optim,
                phase_serving_modes, phase_deploy, phase_int8, phase_aot_graph, phase_export,

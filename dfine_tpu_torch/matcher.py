@@ -1,16 +1,15 @@
 """Hungarian matching for the train step (port of ``dfine_tpu/matcher.py``).
 
 The costs of every output set are computed on the device in one stacked
-pass, ``[S, B, G, Q]``; the assignments are solved on the host by
-``scipy.optimize.linear_sum_assignment``, the reference's own solver, one
-reduced problem (the valid GT rows) per (set, image). That is one
-device-to-host copy, and so one synchronisation, per train step. (The JAX
-package solves on the device only because its TPU runtime has no host
-callbacks, ``dfine_tpu/ops/hungarian.py:1-33``.) The "go" union across sets
-is device code again. The class cost is the focal one (the reference's
-default) or, with ``use_focal_loss=False``, the softmax one;
-``match_one_to_many`` repeats the exact assignment k times with each
-round's queries blocked; no step calls it yet (the reference's
+pass, ``[S, B, G, Q]``, and every (set, image) assignment over its valid
+rows is solved there too, as the JAX package does: on the card by one
+launch of the exact Hungarian kernel for all S * B problems
+(``ops/kernels/hungarian.py``, ``csrc/hungarian_lap.cu``), on the CPU by its
+plain version. No cost reaches the host, so matching does not synchronise
+the step. The "go" union across sets is device code too. The class cost is
+the focal one (the reference's default) or, with ``use_focal_loss=False``,
+the softmax one; ``match_one_to_many`` repeats the exact assignment k times
+with each round's queries blocked; no step calls it yet (the reference's
 ``return_topk`` has no caller either).
 """
 
@@ -19,11 +18,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
-import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
 from .ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou_pairwise
+from .ops.kernels.hungarian import hungarian_lap
 
 
 @dataclass(frozen=True)
@@ -61,7 +59,10 @@ def matching_cost(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                                               box_cxcywh_to_xyxy(tboxes))
     c = cfg.cost_bbox * cost_bbox + cfg.cost_class * cost_class + cfg.cost_giou * cost_giou
     c = torch.nan_to_num(c, nan=1.0).transpose(-1, -2)  # [..., B, G, Q]
-    return torch.where(tgt_valid[..., None], c, 0.0)
+    # written row-major (the solver reads whole rows) by the masking itself:
+    # no copy; nan_to_num left no inf, so the pad rows are exactly (+-)0
+    out = torch.empty(c.shape, dtype=c.dtype, device=c.device)
+    return torch.mul(c, tgt_valid[..., None], out=out)
 
 
 def go_union(match: torch.Tensor, tgt_valid: torch.Tensor,
@@ -95,45 +96,30 @@ def go_union(match: torch.Tensor, tgt_valid: torch.Tensor,
 
 def hungarian(costs: torch.Tensor, tgt_valid: torch.Tensor) -> torch.Tensor:
     """Exact min-cost assignment of every (set, image) problem of costs
-    [S, B, G, Q] over its valid rows, by scipy on the host. Returns the
-    column of each row [S, B, G] int64 on the costs' device, -1 on pad rows."""
-    c = costs.detach().float().cpu().numpy()  # the step's one device-to-host sync
-    v = tgt_valid.detach().cpu().numpy()
-    s, b, g, _ = c.shape
-    out = np.full((s, b, g), -1, np.int64)
-    for bi in range(b):
-        rows = np.flatnonzero(v[bi])
-        if rows.size == 0:
-            continue
-        for si in range(s):
-            r, col = linear_sum_assignment(c[si, bi][rows])
-            out[si, bi, rows[r]] = col
-    return torch.from_numpy(out).to(costs.device)
+    [S, B, G, Q] over its valid rows (tgt_valid [B, G]), on the costs'
+    device. Returns the column of each row [S, B, G] int64, -1 on pad rows."""
+    return hungarian_lap(costs, tgt_valid).long()
 
 
 def match_one_to_many(costs: torch.Tensor, tgt_valid: torch.Tensor, k: int) -> torch.Tensor:
     """One-to-many matching (matcher.py:132-160): k rounds of the exact
     assignment of costs [S, B, G, Q] (or [B, G, Q]) over each problem's
-    valid rows, by scipy on the host; after each round the queries matched
-    to valid rows cost 1e6 more, so each valid row collects k distinct
-    queries. Returns query indices [..., k, G] (round-major) int64 on the
-    costs' device, -1 on pad rows."""
+    valid rows, on the costs' device; after each round the queries matched
+    to valid rows cost 1e6 more (f32, as in JAX), so each valid row collects
+    k distinct queries. Returns query indices [..., k, G] (round-major)
+    int64, -1 on pad rows."""
     squeeze = costs.dim() == 3
-    c = (costs[None] if squeeze else costs).detach().double().cpu().numpy()
-    v = tgt_valid.detach().cpu().numpy()
-    s, b, g, _ = c.shape
-    out = np.full((s, b, k, g), -1, np.int64)
-    for bi in range(b):
-        rows = np.flatnonzero(v[bi])
-        if rows.size == 0:
-            continue
-        for si in range(s):
-            cb = c[si, bi][rows]
-            for r in range(k):
-                rr, col = linear_sum_assignment(cb)
-                out[si, bi, r, rows[rr]] = col
-                cb[:, col] += 1e6
-    out = torch.from_numpy(out).to(costs.device)
+    c = (costs[None] if squeeze else costs).detach().float()
+    q = c.shape[-1]
+    rounds = []
+    for _ in range(k):
+        m = hungarian(c, tgt_valid)  # [S, B, G]
+        rounds.append(m)
+        # block the queries of valid rows (column q absorbs the pad rows)
+        blocked = torch.zeros((*m.shape[:2], q + 1), dtype=torch.bool, device=c.device)
+        blocked.scatter_(2, torch.where(m >= 0, m, q), True)
+        c = c + torch.where(blocked[..., None, :q], 1e6, 0.0)
+    out = torch.stack(rounds, dim=-2)  # [S, B, k, G]
     return out[0] if squeeze else out
 
 

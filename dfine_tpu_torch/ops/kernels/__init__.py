@@ -3,10 +3,12 @@ beside its plain PyTorch version and with a launch counter on its wrapper."""
 
 from .deform_attn import (HEAD_DIMS, MAX_LEVELS, MAX_POINTS, ms_deform_attn_fwd,  # noqa: F401
                           ms_deform_attn_fwd_plain, ms_deform_attn_op)
+from .hungarian import MAX_Q, hungarian_lap  # noqa: F401
 from .scatter_rows import (TILE_WIDTHS, rows_scatter_add, rows_scatter_add_bf16_plain,  # noqa: F401
                            rows_scatter_add_mxu, rows_scatter_add_plain, rows_scatter_add_tiled)
 
-WRAPPERS = (ms_deform_attn_fwd, rows_scatter_add, rows_scatter_add_mxu, rows_scatter_add_tiled)
+WRAPPERS = (ms_deform_attn_fwd, rows_scatter_add, rows_scatter_add_mxu, rows_scatter_add_tiled,
+            hungarian_lap)
 
 
 def reset_launch_counts() -> None:

@@ -252,6 +252,17 @@ def all_reduce_grads_(params: Sequence[torch.nn.Parameter]) -> None:
         p.grad = g.view_as(p).to(p.dtype) if here else None
 
 
+@torch.no_grad()
+def all_reduce_flat_(flat: torch.Tensor) -> None:
+    """In place: the flat optimizer's gradient buffer (every parameter's
+    ``.grad`` a view into it, zeros where autograd did not write) averaged
+    over the ranks, one all-reduce and one division."""
+    if not _is_multi():
+        return
+    dist.all_reduce(flat)
+    flat.div_(process_count())
+
+
 def rank_generator(seed: int, device: Union[str, torch.device]) -> torch.Generator:
     """This rank's CDN generator: seed + rank * RANK_SEED_STRIDE (JAX folds
     the replica index into the step's key)."""

@@ -6,10 +6,11 @@ and for the ``masks`` loss masks [B, G, Hm', Wm'] with mask_valid [B, G]
 the losses run stacked over a set axis, in the order final, aux_0.., pre,
 enc_0.. (as the JAX package's vmapped pass does); the DN sets are stacked
 the same way. Each loss function below takes that leading set axis S and
-returns one value per set. Matching is ``matcher.solve_matchings`` (scipy
-on the host). Losses: ``vfl``, ``focal`` (with ``label_smoothing``),
-``boxes``, ``local`` (FGL + DDF) and ``masks`` (focal BCE + Dice of the
-matched queries' lazy mask logits, with the DN zip truncation of
+returns one value per set. Matching is ``matcher.solve_matchings`` (the
+exact Hungarian solver on the device, no host round trip). Losses:
+``vfl``, ``focal`` (with ``label_smoothing``), ``boxes``, ``local`` (FGL +
+DDF) and ``masks`` (focal BCE + Dice of the matched queries' lazy mask
+logits, with the DN zip truncation of
 criterion.py:520-591). Class-agnostic encoder sets are padded to C classes
 with -20 columns and matched to class 0 (criterion.py:338-366). With
 ``axis_name`` (data parallelism) the box normalizers are means over the

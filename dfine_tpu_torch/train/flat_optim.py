@@ -24,7 +24,9 @@ Semantics of the JAX flat optimizer, not of ``Optimizer``'s AdamW: a
 parameter that takes no gradient in a step (an unused head) has a zero
 gradient there, so it still takes its weight decay. These are XLA in JAX,
 not Pallas: plain vector ops are the port. Under data parallelism the
-train step refuses the flat optimizer.
+train step averages the gradient buffer over the ranks in place before
+each micro-step (``parallel.dp.all_reduce_flat_``), as JAX averages the
+gradients before ``MultiSteps``.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 ``make_train_step`` returns ``step(state, batch, generator=None,
 dn_noise=None) -> (state, metrics)``: forward in train mode with the CDN
-queries, the criterion (matching on the host), backward, clip + AdamW, and
+queries, the criterion (matching on the device), backward, clip + AdamW, and
 the EMA update. Unlike the JAX step it updates in place: the model's
 parameters and BatchNorm statistics, the optimizer's moments and the EMA
 copy live in ``TrainState`` and change under it.
@@ -18,17 +18,20 @@ statistics), ``ema_base``, and gradient accumulation, which the step reads
 from its optimizer (``OptimConfig.b_accum_steps``: it steps on the mean of
 k micro-steps, and the EMA follows only the optimizer steps). With the flat
 optimizer (``build_optimizer(flat=True)``) the EMA is ``ema_update_flat``,
-one ``lerp_`` over the flat buffers; data parallelism refuses it.
+one ``lerp_`` over the flat buffers.
 
 Data parallelism (``axis_name="dp"``, JAX's step under ``shard_map``): each
 rank runs the step on its rows of the global batch in a process group
 (``parallel/dp.py``). The criterion's box normalizers are means over the
 ranks; the gradients are averaged over the ranks before the accumulation,
 the clip and the update (a parameter without a gradient on one rank enters
-as zeros, one without a gradient on any rank keeps none); the BatchNorm
-running statistics are averaged after the forward, so the EMA follows the
-averaged ones (``num_batches_tracked`` is not averaged); the metrics are
-averaged. The CDN noise is each rank's own (``parallel.rank_generator``).
+as zeros, one without a gradient on any rank keeps none; the flat
+optimizer's gradient buffer is averaged in place by one all-reduce, the
+gradients autograd did not touch zeros, as JAX's ``pmean`` of the gradient
+tree gives); the BatchNorm running statistics are averaged after the
+forward, so the EMA follows the averaged ones (``num_batches_tracked`` is
+not averaged); the metrics are averaged. The CDN noise is each rank's own
+(``parallel.rank_generator``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 import torch.nn as nn
 
 from ..models.denoising import CdnNoise
-from ..parallel.dp import all_reduce_grads_, all_reduce_mean_
+from ..parallel.dp import all_reduce_flat_, all_reduce_grads_, all_reduce_mean_
 from .criterion import CriterionConfig, criterion_forward
 from .flat_optim import FlatOptimizer, ema_update_flat
 from .optim import EMA_BASE, Optimizer, ema_update
@@ -82,9 +85,6 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         noise is ``dn_noise`` or drawn from ``generator``."""
         model, opt = state.model, state.optimizer
         flat = isinstance(opt, FlatOptimizer)
-        if flat and axis_name is not None:
-            raise ValueError("the flat optimizer (build_optimizer(flat=True)) is not ported "
-                             "to data parallelism: use the four-group Optimizer")
         for name in frozen:
             model.get_parameter(name).requires_grad_(False)
         model.train()
@@ -96,7 +96,10 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         losses = criterion_forward(out, batch["targets"], crit_cfg, axis_name=axis_name)
         losses["total"].backward()
         if axis_name is not None:
-            all_reduce_grads_(opt.params)
+            if flat:
+                all_reduce_flat_(opt.grad_flat)
+            else:
+                all_reduce_grads_(opt.params)
             all_reduce_mean_(bn_statistics(model))
         grad_norm = opt.step()
         state.step += 1

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from test_torch_port_deform_cases import DEFORM_CASES, deform_case
+from test_torch_port_hungarian_cases import CASES, assert_optimal, hungarian_case, integer_case
 from test_torch_port_scatter_cases import CASE_WIDTHS, EDGE_CASES, scatter_case
 
 pytestmark = pytest.mark.cuda
@@ -513,7 +514,8 @@ def test_dp_step_two_ranks_sharing_the_card(cuda, tmp_path):
     batch): loss rtol 1e-5, grad norm rtol 1e-4, every parameter element
     within 2 lr + 2e-6 and at most 0.5 % beyond rtol 1e-4 / atol 1e-5
     (tests/test_torch_port_dp.py's rules); both ranks bit-equal; each rank
-    launched the sampling kernel 3 times and the scatter 6 times."""
+    launched the sampling kernel 3 times, the scatter 6 times and the
+    Hungarian solver once."""
     import socket
     import subprocess
     import sys
@@ -560,7 +562,8 @@ def test_dp_step_two_ranks_sharing_the_card(cuda, tmp_path):
     for r in ranks:
         assert r["backend"] == "gloo"
         assert r["counts"] == {"ms_deform_attn_fwd": 3, "rows_scatter_add": 6,
-                               "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
+                               "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0,
+                               "hungarian_lap": 1}
         np.testing.assert_allclose(r["metrics"]["loss"], float(m["loss"]), rtol=1e-5)
         np.testing.assert_allclose(r["metrics"]["grad_norm"], float(m["grad_norm"]), rtol=1e-4)
         far, n_el = 0, 0
@@ -576,3 +579,77 @@ def test_dp_step_two_ranks_sharing_the_card(cuda, tmp_path):
         assert far <= 0.005 * n_el, (far, n_el)
     for k, v in ranks[0]["model"].items():
         assert torch.equal(v, ranks[1]["model"][k]), k
+
+
+# ----------------------------------------------------- the Hungarian solver --
+
+
+def _lap_inputs(dev, cost, valid):
+    return torch.from_numpy(cost).to(dev), torch.from_numpy(valid).to(dev)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_hungarian_kernel_matches_plain(cuda, case):
+    """Continuous costs (pad rows, an image without a valid row, square,
+    G = 1, Q of 40, 300 and 500): one launch, the kernel's col4row equal to
+    the plain version's on the CPU element for element, scipy's optimum
+    within rtol 1e-6."""
+    from dfine_tpu_torch.ops.hungarian import hungarian
+    from dfine_tpu_torch.ops.kernels import hungarian_lap
+
+    cost, valid = hungarian_case(case)
+    before = hungarian_lap.launches
+    got = hungarian_lap(*_lap_inputs(cuda, cost, valid))
+    torch.cuda.synchronize()
+    assert hungarian_lap.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == cost.shape[:3]
+    ref = hungarian(torch.from_numpy(cost), torch.from_numpy(valid))
+    assert torch.equal(got.cpu(), ref)
+    assert_optimal(cost, valid, got.cpu().numpy())
+
+
+@pytest.mark.parametrize("g,q", [(12, 40), (40, 40), (100, 300)])
+def test_hungarian_kernel_ties_reach_the_optimum(cuda, g, q):
+    """Integer costs tie everywhere: the kernel's assignment has scipy's
+    optimum and the plain version's total exactly (the assignments
+    themselves are expected equal too, as the arithmetic is)."""
+    from dfine_tpu_torch.ops.hungarian import hungarian
+    from dfine_tpu_torch.ops.kernels import hungarian_lap
+
+    cost, valid = integer_case(g, q)
+    got = hungarian_lap(*_lap_inputs(cuda, cost, valid)).cpu().numpy()
+    assert_optimal(cost, valid, got, rtol=0)
+    ref = hungarian(torch.from_numpy(cost), torch.from_numpy(valid)).numpy()
+    rows = np.arange(g)
+    for si in range(cost.shape[0]):
+        for bi in range(cost.shape[1]):
+            assert cost[si, bi, rows, got[si, bi]].sum() == cost[si, bi, rows, ref[si, bi]].sum()
+
+
+def test_hungarian_kernel_refuses_what_it_does_not_take(cuda):
+    """G > Q and a Q above ``MAX_Q`` raise ValueError, each naming it."""
+    from dfine_tpu_torch.ops.kernels import MAX_Q, hungarian_lap
+
+    with pytest.raises(ValueError, match="G <= Q"):
+        hungarian_lap(torch.zeros(2, 5, 4, device=cuda))
+    with pytest.raises(ValueError, match="Q = "):
+        hungarian_lap(torch.zeros(2, 5, MAX_Q + 1, device=cuda))
+
+
+def test_hungarian_kernel_in_a_cuda_graph(cuda):
+    """The solver captured in a CUDA graph (after a warm-up that builds the
+    kernel) and replayed on new costs copied into the static ones: equal to
+    an eager call on those costs."""
+    from dfine_tpu_torch.ops.kernels import hungarian_lap
+
+    cost, valid = _lap_inputs(cuda, *hungarian_case("train_m"))
+    hungarian_lap(cost, valid)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = hungarian_lap(cost, valid)
+    new = torch.from_numpy(np.random.default_rng(5).normal(size=cost.shape).astype(np.float32))
+    cost.copy_(torch.where(valid[None, :, :, None], new.to(cuda), 0.0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, hungarian_lap(cost, valid))

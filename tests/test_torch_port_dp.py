@@ -207,10 +207,11 @@ def _criterion_inputs():
     return {"c": NUM_CLASSES, "outputs": out, "targets": targets}
 
 
-def _jax_dp_step(jmodel, variables, tx, batches, losses, b_accum_steps=1):
+def _jax_dp_step(jmodel, variables, tx, batches, losses, b_accum_steps=1, update_mask=None):
     """The JAX DP step over a 2-device mesh with SyncBN, the CDN key of
     replica r fold_in(key(DN_KEY_SEED), r); the state and metrics after each
-    of ``batches``."""
+    of ``batches``. ``update_mask``: the step's freeze mask (JAX
+    ``freeze_mask``)."""
     import dfine_tpu.models.decoder as jdec
     from dfine_tpu.models.layers import set_bn_axis
     from dfine_tpu.parallel import make_dp_train_step, make_mesh, replicate, shard_batch
@@ -232,9 +233,12 @@ def _jax_dp_step(jmodel, variables, tx, batches, losses, b_accum_steps=1):
         try:
             step = make_dp_train_step(jax_step(jmodel, tx, JCrit(num_classes=NUM_CLASSES,
                                                                  losses=losses),
-                                               axis_name="dp", b_accum_steps=b_accum_steps),
+                                               axis_name="dp", b_accum_steps=b_accum_steps,
+                                               update_mask=update_mask),
                                       mesh)
-            jstate = replicate(JState.create(variables, tx), mesh)
+            # each leaf its own buffer: the flat optimizer's init gives m and v
+            # one zeros array, which the step (it donates its state) refuses
+            jstate = jax.tree.map(jnp.copy, replicate(JState.create(variables, tx), mesh))
             for images, targets in batches:
                 batch = {"images": jnp.asarray(images),
                          "targets": jax.tree.map(jnp.asarray, targets)}

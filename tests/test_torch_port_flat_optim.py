@@ -200,7 +200,7 @@ def test_flat_train_step_matches_the_group_step_and_resumes(variables, tmp_path)
     sign, and after the first step the backbone's train-mode BatchNorms
     amplify the difference in the weights.
     The flat state saved by ``save_state`` and restored into a fresh flat
-    optimizer gives a bit-equal third step. Data parallelism refuses it."""
+    optimizer gives a bit-equal third step."""
     from dfine_tpu_torch.models.denoising import draw_cdn_noise
     from dfine_tpu_torch.train.criterion import CriterionConfig
     from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
@@ -244,7 +244,3 @@ def test_flat_train_step_matches_the_group_step_and_resumes(variables, tmp_path)
     for (k, a), b in zip(flat_state.model.state_dict().items(),
                          fresh.model.state_dict().values()):
         assert torch.equal(a, b), k
-
-    dp_step = make_train_step(crit, compute_dtype=torch.float32, axis_name="dp")
-    with pytest.raises(ValueError, match="flat optimizer"):
-        dp_step(fresh, {"images": x, "targets": tgt}, dn_noise=noise(4))

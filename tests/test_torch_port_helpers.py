@@ -196,22 +196,50 @@ MU_REL, MU_REL_SCALAR = 3e-2, 0.15
 MU_ROUNDING_SHARE = 5e-4
 
 
-def first_moment_agreement(port, optimizer, opt_state, batch_stats):
+def _flat_first_moment(port, optimizer, opt_state, params, batch_stats):
+    """The flat optimizers' first moments: JAX's ``FlatAdamWState.m``
+    unravelled onto ``params`` in the port's layout, and the port's ``m``
+    buffer cut into its trainable parameters."""
+    from jax.flatten_util import ravel_pytree
+
+    from dfine_tpu.train.flat_optim import FlatAdamWState
+
+    is_flat = lambda x: isinstance(x, FlatAdamWState)  # noqa: E731
+    m = next(s.m for s in jax.tree.leaves(opt_state, is_leaf=is_flat) if is_flat(s))
+    view = port_view(port, {"params": ravel_pytree(params)[1](m), "batch_stats": batch_stats})
+    ours, off = {}, 0
+    for k, p in port.named_parameters():
+        if p.requires_grad:
+            ours[k] = optimizer.m[off: off + p.numel()].view_as(p).numpy()
+        off += p.numel()
+    return view, ours
+
+
+def first_moment_agreement(port, optimizer, opt_state, batch_stats, params=None):
     """Per parameter of the port with a first moment, ||m - m_jax|| /
-    ||m_jax|| of AdamW's ``exp_avg`` against optax's ``mu``, and the
-    parameters exempted as nought to rounding, with their norms."""
+    ||m_jax|| of AdamW's ``exp_avg`` against optax's ``mu`` (with the flat
+    optimizer, ``build_optimizer(flat=True)``: its ``m`` buffer against the
+    JAX flat state's, unravelled onto ``params``; the frozen parameters,
+    ``requires_grad`` off, left out), and the parameters exempted as nought
+    to rounding, with their norms."""
     import optax
     from flax import traverse_util
 
-    mu = {}
-    is_adam = lambda x: isinstance(x, optax.ScaleByAdamState)  # noqa: E731
-    for s in jax.tree.leaves(opt_state, is_leaf=is_adam):
-        if is_adam(s):
-            mu.update({k: v for k, v in traverse_util.flatten_dict(s.mu).items()
-                       if not isinstance(v, optax.MaskedNode)})
-    view = port_view(port, {"params": traverse_util.unflatten_dict(mu),
-                            "batch_stats": batch_stats})
-    params = {k: p for k, p in port.named_parameters() if p in optimizer.adamw.state}
+    if hasattr(optimizer, "grad_flat"):
+        view, ours = _flat_first_moment(port, optimizer, opt_state, params, batch_stats)
+        params = {k: port.get_parameter(k) for k in ours}
+        mu_of = ours.__getitem__
+    else:
+        mu = {}
+        is_adam = lambda x: isinstance(x, optax.ScaleByAdamState)  # noqa: E731
+        for s in jax.tree.leaves(opt_state, is_leaf=is_adam):
+            if is_adam(s):
+                mu.update({k: v for k, v in traverse_util.flatten_dict(s.mu).items()
+                           if not isinstance(v, optax.MaskedNode)})
+        view = port_view(port, {"params": traverse_util.unflatten_dict(mu),
+                                "batch_stats": batch_stats})
+        params = {k: p for k, p in port.named_parameters() if p in optimizer.adamw.state}
+        mu_of = lambda k: optimizer.adamw.state[params[k]]["exp_avg"].numpy()  # noqa: E731
     norms = {k: float(np.linalg.norm(view[k])) for k in params}
     rms_all = np.sqrt(sum(n * n for n in norms.values()) / sum(p.numel() for p in params.values()))
     rel, exempt = {}, {}
@@ -219,8 +247,7 @@ def first_moment_agreement(port, optimizer, opt_state, batch_stats):
         if norms[k] / np.sqrt(p.numel()) < MU_ROUNDING_SHARE * rms_all:
             exempt[k] = norms[k]
             continue
-        ours = optimizer.adamw.state[p]["exp_avg"].numpy()
-        rel[k] = float(np.linalg.norm(ours - view[k])) / norms[k]
+        rel[k] = float(np.linalg.norm(mu_of(k) - view[k])) / norms[k]
     return rel, exempt
 
 
@@ -263,7 +290,7 @@ def check_step(port, state, metrics, jstate, jmetrics, before, frozen=(), lr=2e-
     assert moved > 0.9 * n_params, (moved, n_params)
 
     rel, exempt = first_moment_agreement(port, state.optimizer, jstate.opt_state,
-                                         jstate.batch_stats)
+                                         jstate.batch_stats, jstate.params)
     assert all(("lab." in k or "norm" in k or ".bn." in k) for k in exempt), exempt
     assert len(exempt) <= 0.1 * len(rel), exempt
     for k, r in rel.items():

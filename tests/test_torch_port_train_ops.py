@@ -239,9 +239,10 @@ def test_matching_cost_and_go_union_match_jax():
 
 
 def test_hungarian_optimum_equals_jax():
-    """scipy on the valid rows against the JAX on-device solver, random
-    problems with pad rows: the optimal costs agree (rtol 1e-6), pad rows
-    are -1 from the solver and 0 after solve_matchings."""
+    """The matcher's device solver (the plain version on the CPU) against
+    the JAX on-device solver, random problems with pad rows: the same
+    assignment element for element, so the same optimal costs (rtol 1e-6),
+    pad rows -1 from the solver and 0 after solve_matchings."""
     from dfine_tpu.ops.hungarian import hungarian as jax_hungarian
 
     from dfine_tpu_torch import matcher as tm
@@ -255,6 +256,7 @@ def test_hungarian_optimum_equals_jax():
     cost = np.where(valid[None, :, :, None], cost, 0.0).astype(np.float32)
     ref = np.asarray(jax_hungarian(jnp.asarray(cost), jnp.asarray(valid)))
     ours = tm.hungarian(_t(cost), _t(valid)).numpy()
+    np.testing.assert_array_equal(ours, ref)
     assert (ours[:, ~valid] == -1).all() and (ref[:, ~valid] == -1).all()
     rows = np.arange(g)
     for si in range(s):
