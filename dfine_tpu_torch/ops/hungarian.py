@@ -35,11 +35,16 @@ INF = 1e30  # the JAX solver's mask of done columns (an f32 1e30)
 
 
 @torch.no_grad()
-def lap_plain(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def lap_plain(cost: torch.Tensor, valid: torch.Tensor,
+              steps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """cost [P, G, Q] f32 (G <= Q), valid [P, G] bool -> col4row [P, G]
-    int32, the column of each row, -1 on rows that are not valid."""
+    int32, the column of each row, -1 on rows that are not valid. ``steps``
+    [P] (any integer type) gets each problem's path steps: the argmins its
+    augmenting paths took, 0 where the row reduction assigned every row."""
     p, g, q = cost.shape
     dev = cost.device
+    if steps is not None:
+        steps.zero_()
     if p == 0 or g == 0:
         return torch.full((p, g), -1, dtype=torch.int32, device=dev)
     ar = torch.arange(p, device=dev)
@@ -71,6 +76,8 @@ def lap_plain(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     scanned = torch.zeros((p, g), dtype=torch.bool, device=dev)
     while bool(active.any()):
         # ---- one step of every open path, from row i
+        if steps is not None:
+            steps += active.to(steps.dtype)
         a = active[:, None]
         scanned[ar, i] |= active
         rc = ((minval[:, None] + cost[ar, i]) - u.gather(1, i[:, None])) - v
@@ -119,19 +126,31 @@ def lap_plain(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return col4row.to(torch.int32)
 
 
-def hungarian(cost: torch.Tensor, row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+def check_steps(steps: Optional[torch.Tensor], lead, device) -> None:
+    """Raise unless ``steps`` is None or a contiguous int32 tensor of shape
+    ``lead`` (the costs' leading shape) on ``device``."""
+    if steps is not None and (steps.dtype != torch.int32 or tuple(steps.shape) != tuple(lead)
+                              or not steps.is_contiguous() or steps.device != device):
+        raise ValueError(f"steps must be a contiguous int32 tensor of shape {tuple(lead)} on "
+                         f"{device}, got {steps.dtype} {tuple(steps.shape)} on {steps.device}")
+
+
+def hungarian(cost: torch.Tensor, row_valid: Optional[torch.Tensor] = None,
+              steps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched exact min-cost assignment (``dfine_tpu.ops.hungarian.hungarian``):
     cost [..., G, Q] with G <= Q, row_valid [..., G] bool (rows marked False
     are skipped and get -1). Returns col4row [..., G] int32, the column of
-    each row. The plain version, on the costs' device."""
+    each row. ``steps`` (int32, the leading shape) gets each problem's path
+    steps. The plain version, on the costs' device."""
     g, q = cost.shape[-2:]
     if g > q:
         raise ValueError(f"hungarian takes G <= Q (rows no more than columns), got G = {g}, "
                          f"Q = {q}")
     lead = tuple(cost.shape[:-2])
+    check_steps(steps, lead, cost.device)
     flat = cost.detach().float().reshape(-1, g, q)
     if row_valid is None:
         valid = torch.ones(flat.shape[:2], dtype=torch.bool, device=cost.device)
     else:
         valid = row_valid.to(torch.bool).broadcast_to(*lead, g).reshape(-1, g)
-    return lap_plain(flat, valid).reshape(*lead, g)
+    return lap_plain(flat, valid, None if steps is None else steps.view(-1)).reshape(*lead, g)

@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from test_torch_port_deform_cases import DEFORM_CASES, deform_case
-from test_torch_port_hungarian_cases import CASES, assert_optimal, hungarian_case, integer_case
+from test_torch_port_hungarian_cases import (CASES, SIZE_CASES, assert_optimal, cap_rows,
+                                             hungarian_case, integer_case, no_pending_case,
+                                             size_case)
 from test_torch_port_scatter_cases import CASE_WIDTHS, EDGE_CASES, scatter_case
 
 pytestmark = pytest.mark.cuda
@@ -588,24 +590,57 @@ def _lap_inputs(dev, cost, valid):
     return torch.from_numpy(cost).to(dev), torch.from_numpy(valid).to(dev)
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_hungarian_kernel_matches_plain(cuda, case):
-    """Continuous costs (pad rows, an image without a valid row, square,
-    G = 1, Q of 40, 300 and 500): one launch, the kernel's col4row equal to
-    the plain version's on the CPU element for element, scipy's optimum
-    within rtol 1e-6."""
+def _kernel_equals_plain(dev, cost, valid):
+    """One launch: the kernel's col4row equal to the plain version's on the
+    CPU element for element, the same path steps in every problem (and the
+    same assignment without a step tensor), scipy's optimum within rtol
+    1e-6. Returns the plain version's steps."""
     from dfine_tpu_torch.ops.hungarian import hungarian
     from dfine_tpu_torch.ops.kernels import hungarian_lap
 
-    cost, valid = hungarian_case(case)
+    steps = torch.full(cost.shape[:2], -1, dtype=torch.int32, device=dev)
     before = hungarian_lap.launches
-    got = hungarian_lap(*_lap_inputs(cuda, cost, valid))
+    got = hungarian_lap(*_lap_inputs(dev, cost, valid), steps=steps)
     torch.cuda.synchronize()
     assert hungarian_lap.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == cost.shape[:3]
-    ref = hungarian(torch.from_numpy(cost), torch.from_numpy(valid))
+    ref_steps = torch.empty(cost.shape[:2], dtype=torch.int32)
+    ref = hungarian(torch.from_numpy(cost), torch.from_numpy(valid), steps=ref_steps)
     assert torch.equal(got.cpu(), ref)
+    assert torch.equal(steps.cpu(), ref_steps)
+    assert torch.equal(hungarian_lap(*_lap_inputs(dev, cost, valid)).cpu(), ref)
     assert_optimal(cost, valid, got.cpu().numpy())
+    return ref_steps
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_hungarian_kernel_matches_plain(cuda, case):
+    """Continuous costs (pad rows, an image without a valid row, square,
+    G = 1, Q of 40, 300 and 500): the kernel against the plain version,
+    assignment and path steps (``_kernel_equals_plain``)."""
+    _kernel_equals_plain(cuda, *hungarian_case(case))
+
+
+@pytest.mark.parametrize("case", list(SIZE_CASES))
+def test_hungarian_kernel_at_its_boundaries(cuda, case):
+    """Q at each boundary of the columns a lane owns (32, 320 | 321, 512,
+    1024), square G = Q = 128 and 320, and problems whose valid rows do not
+    fit the shared memory (read from global memory; ``cap_rows``), beside
+    ones that do in the same launch: the kernel against the plain version,
+    assignment and path steps; each case takes path steps."""
+    cost, valid = size_case(case)
+    rows, cap = valid.sum(-1), cap_rows(*cost.shape[-2:])
+    if case.startswith("unstaged"):
+        assert rows.max() > cap and ((rows > 0) & (rows <= cap)).any()
+    steps = _kernel_equals_plain(cuda, cost, valid)
+    assert int(steps.sum()) > 0
+
+
+def test_hungarian_kernel_without_pending_rows(cuda):
+    """Every row's argmin distinct: no path step, the argmins returned."""
+    cost, valid = no_pending_case()
+    steps = _kernel_equals_plain(cuda, cost, valid)
+    assert int(steps.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("g,q", [(12, 40), (40, 40), (100, 300)])

@@ -121,3 +121,65 @@ def test_solve_matchings_equals_jax(shape):
     ref = jax.jit(jax_solve)(jnp.asarray(costs.numpy()), jnp.asarray(valid))
     for name, a, r in zip(("match", "go_q", "go_t", "go_valid"), ours, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(r), err_msg=name)
+
+
+def test_plain_counts_no_step_without_pending_rows():
+    """Every valid row's argmin its own column: the row reduction assigns
+    every row, no path step is counted, and the assignment is the argmins."""
+    from test_torch_port_hungarian_cases import no_pending_case
+
+    from dfine_tpu_torch.ops.hungarian import hungarian
+
+    cost, valid = no_pending_case()
+    steps = torch.full(cost.shape[:2], -1, dtype=torch.int32)
+    got = hungarian(torch.from_numpy(cost), torch.from_numpy(valid), steps=steps).numpy()
+    assert (steps == 0).all()
+    rows = np.arange(cost.shape[2])
+    np.testing.assert_array_equal(got, np.broadcast_to(np.where(valid, rows, -1), got.shape))
+
+
+def test_plain_counts_the_path_steps_of_a_hand_checked_case():
+    """Problem 0: rows [1, 2, 3] and [1, 5, 6] both reduce to column 0; row 0
+    keeps it and row 1 pends. Its path: step 1 from row 1 reaches column 0
+    (reduced cost 0), held by row 0; step 2 from row 0 reaches the free
+    column 1 (reduced cost 1): 2 steps, then row 0 takes column 1 and row 1
+    column 0 (total 3, the optimum). Problem 1 has distinct argmins: 0 steps.
+    A wrong step tensor is refused."""
+    from dfine_tpu_torch.ops.hungarian import hungarian
+
+    cost = torch.tensor([[[1.0, 2.0, 3.0], [1.0, 5.0, 6.0]],
+                         [[1.0, 2.0, 3.0], [4.0, 0.0, 6.0]]])
+    steps = torch.empty(2, dtype=torch.int32)
+    got = hungarian(cost, steps=steps)
+    assert got.tolist() == [[1, 0], [0, 1]]
+    assert steps.tolist() == [2, 0]
+    with pytest.raises(ValueError, match="int32"):
+        hungarian(cost, steps=torch.empty(2, dtype=torch.int64))
+
+
+def test_size_cases_reach_both_staging_paths():
+    """``cap_rows`` mirrors the kernel's shared-memory rule (its constants
+    read from ``csrc/hungarian_lap.cu``), and the CUDA tests' size cases
+    reach both of the kernel's paths: every problem of the staged cases
+    fits; ``square_g320`` (10 columns a lane) and each ``unstaged`` case
+    (16 and 32) hold a problem that does not, the latter beside one that
+    does in the same launch."""
+    import re
+    from pathlib import Path
+
+    from test_torch_port_hungarian_cases import MAX_SMEM, SIZE_CASES, cap_rows, size_case
+
+    src = (Path(__file__).resolve().parents[1] / "dfine_tpu_torch" / "csrc"
+           / "hungarian_lap.cu").read_text()
+    assert int(re.search(r"kMaxSmem = (\d+);", src).group(1)) == MAX_SMEM
+    assert "((size_t)g * 28 + (size_t)q * 8 + 15) / 16 * 16" in src
+    assert cap_rows(100, 300) == 100 and cap_rows(64, 1024) == 54
+    unstaged = {}
+    for case, (g, q, _) in SIZE_CASES.items():
+        rows = size_case(case)[1].sum(-1)
+        cap = cap_rows(g, q)
+        unstaged[case] = bool(rows.max() > cap)
+        if case.startswith("unstaged"):
+            assert ((rows > 0) & (rows <= cap)).any(), case
+    assert {c for c, u in unstaged.items() if u} == {
+        "square_g320", "unstaged_q480", "unstaged_q600", "unstaged_q1024"}

@@ -81,3 +81,58 @@ def assert_optimal(cost, valid, col4row, rtol=1e-6):
             best = c[r, col].sum()
             total = c[np.arange(rows.size), got[rows]].sum()
             np.testing.assert_allclose(total, best, rtol=rtol, atol=1e-9 * rows.size)
+
+
+def no_pending_case():
+    """The m stack's shape with every valid row's first argmin its own
+    column (row i's at column i, below the rest of its row): the row
+    reduction assigns every valid row, and no path step is taken."""
+    cost, valid = hungarian_case("train_m")
+    rows = np.arange(cost.shape[2])
+    cost[:, :, rows, rows] = cost.min(-1) - 1.0
+    return np.where(valid[None, :, :, None], cost, 0.0).astype(np.float32), valid
+
+
+# the dynamic shared memory a block of the kernel takes (csrc/hungarian_lap.cu:
+# kMaxSmem), which holds 28 G + 8 Q bytes of state and the staged rows
+MAX_SMEM = 232448
+
+
+def cap_rows(g: int, q: int) -> int:
+    """The valid rows a problem may have for the kernel to stage them in
+    shared memory (csrc/hungarian_lap.cu: ``launch``); a problem with more
+    reads its rows from global memory."""
+    state = (g * 28 + q * 8 + 15) // 16 * 16
+    return min(g, (MAX_SMEM - state) // (q * 4))
+
+
+# (G, Q, valid rows per image (low, high)) of the cases at the kernel's
+# boundaries: columns per lane 10 up to Q = 320, 16 up to 512, 32 up to
+# 1024; square problems; and at each columns-per-lane instance, problems
+# whose valid rows do not all fit the kernel's shared memory (``cap_rows``:
+# 172 rows of 320 columns in ``square_g320``, 116 of 480, 91 of 600, 54 of
+# 1024), the ``unstaged`` cases in one launch with problems that do
+SIZE_CASES = {
+    "q32": (20, 32, (1, 21)), "q320": (100, 320, (40, 101)), "q321": (100, 321, (40, 101)),
+    "q512": (100, 512, (40, 101)), "q1024": (100, 1024, (30, 54)),
+    "square_g128": (128, 128, (128, 129)), "square_g320": (320, 320, (300, 321)),
+    "unstaged_q480": (160, 480, (60, 161)), "unstaged_q600": (300, 600, (60, 201)),
+    "unstaged_q1024": (64, 1024, (30, 65)),
+}
+
+
+def size_case(case: str):
+    """(cost [2, 4, G, Q] f32, valid [4, G] bool) of ``SIZE_CASES[case]``,
+    the first image of the non-square cases without a valid row, pad rows
+    costing 0. In the ``unstaged`` cases the second image has the fewest
+    valid rows (staged) and the last every row (read from global memory)."""
+    g, q, (lo, hi) = SIZE_CASES[case]
+    rng = np.random.default_rng(100 + list(SIZE_CASES).index(case))
+    n_valid = rng.integers(lo, hi, (4, 1))
+    if case.startswith("unstaged"):
+        n_valid[1], n_valid[-1] = lo, g
+    valid = np.arange(g)[None] < n_valid
+    if g < q:
+        valid[0] = False
+    cost = rng.normal(size=(2, 4, g, q)).astype(np.float32)
+    return np.where(valid[None, :, :, None], cost, 0.0).astype(np.float32), valid

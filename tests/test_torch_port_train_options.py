@@ -212,6 +212,77 @@ def test_one_to_many_matches_jax():
     np.testing.assert_array_equal(ours[:, :, 0], hungarian(_t(cost), _t(valid)).numpy())
 
 
+@pytest.mark.parametrize("pads", ["constant_0", "constant_3", "varying"])
+def test_one_to_many_pad_rows(pads):
+    """The port solves every round over each image's valid rows
+    (``hungarian`` with ``tgt_valid``), the reduced problem the reference
+    solves and ``solve_matchings`` documents (dfine_tpu/matcher.py:172-173);
+    JAX's ``match_one_to_many`` calls ``hungarian(c)`` with no row mask
+    (:153), so its pad rows compete for queries (ROADMAP Queue 3 item 3).
+    Each round of the port equals JAX's solver on the reduced problem (the
+    earlier rounds' queries blocked by +1e6), element for element, pad rows
+    -1, with scipy's optimum over the valid rows. Where the pad rows cost
+    the same on every query the valid rows' queries equal JAX's
+    ``match_one_to_many``'s; where their costs vary, JAX gives some valid
+    rows other queries, and some of its rounds cost the valid rows more
+    than the reduced optimum of that round's (JAX-blocked) costs."""
+    from scipy.optimize import linear_sum_assignment
+
+    from dfine_tpu.matcher import match_one_to_many as jax_one_to_many
+    from dfine_tpu.ops.hungarian import hungarian as jax_hungarian
+
+    from dfine_tpu_torch.matcher import match_one_to_many
+
+    rng = np.random.default_rng(11)
+    s, b, g, q, k = 2, 3, 5, 40, 3
+    cost = rng.normal(size=(s, b, g, q)).astype(np.float32)
+    valid = np.ones((b, g), bool)
+    valid[1, 3:] = False
+    valid[2, 0] = False
+    pad = (rng.normal(-1.0, 2.0, cost.shape) if pads == "varying"
+           else np.full(cost.shape, float(pads.split("_")[1])))
+    cost = np.where(valid[None, :, :, None], cost, pad).astype(np.float32)
+    ours = match_one_to_many(_t(cost), _t(valid), k).numpy()
+
+    def rounds(matches):
+        """Each (set, image, round): the valid rows' total of ``matches`` and
+        the reduced optimum (scipy), on that round's costs, the earlier
+        rounds' queries of valid rows blocked by +1e6."""
+        c, out = cost.copy(), np.zeros((s, b, k, 2))
+        for r in range(k):
+            for si in range(s):
+                for bi in range(b):
+                    rows = np.flatnonzero(valid[bi])
+                    if rows.size:
+                        sub = c[si, bi][rows].astype(np.float64)
+                        cols = matches[si, bi, r, rows]
+                        out[si, bi, r] = sub[np.arange(rows.size), cols].sum(), \
+                            sub[linear_sum_assignment(sub)].sum()
+                        c[si, bi][:, cols] += np.float32(1e6)
+        return out
+
+    # the reduced problem, round by round, by JAX's own solver with the mask
+    solve, c = jax.jit(jax_hungarian), cost.copy()
+    for r in range(k):
+        ref = np.asarray(solve(jnp.asarray(c), jnp.asarray(valid)))
+        np.testing.assert_array_equal(ours[:, :, r], ref, err_msg=f"round {r}")
+        blocked = np.zeros((s, b, q + 1), bool)
+        np.put_along_axis(blocked, np.where(ref >= 0, ref, q), True, -1)
+        c = c + np.where(blocked[:, :, None, :q], np.float32(1e6), np.float32(0))
+    ours_totals = rounds(ours)
+    np.testing.assert_allclose(ours_totals[..., 0], ours_totals[..., 1], rtol=1e-6)
+    jax_o2m = np.asarray(jax.jit(lambda c_, v: jax_one_to_many(c_, v, k))(jnp.asarray(cost),
+                                                                         jnp.asarray(valid)))
+    on_valid = np.broadcast_to(valid[None, :, None, :], ours.shape)
+    if pads != "varying":
+        np.testing.assert_array_equal(ours[on_valid], jax_o2m[on_valid])
+        return
+    assert (ours[on_valid] != jax_o2m[on_valid]).any()
+    jax_totals = rounds(jax_o2m)
+    excess = jax_totals[..., 0] - jax_totals[..., 1]
+    assert (excess > -1e-4).all() and (excess > 1e-3).any()
+
+
 # ----------------------------------------------------- freeze, schedule --
 
 
