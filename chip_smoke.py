@@ -23,17 +23,29 @@ Phases, each printed as one JSON line:
    16, ``_tiled`` also bit for bit against its plain version on the CPU;
    one call of each, at every head dim, must be its kernel alone: the call
    captured in a CUDA graph and the graph's nodes counted (no profiler);
+2b. core_backward, core_bwd_kernel: ``MSDeformAttnCore``'s backward
+   against autograd of the plain core (one backward kernel and one scatter
+   a level a call); the deformable-attention backward kernel
+   (``csrc/ms_deform_attn_bwd.cu``) against its plain version, the closed
+   form, at m@640, B = 8, Q = 300, bf16 value, D = 32 and 64, f32 and bf16
+   payload (idx equal, contrib bit-equal, gradients within GRAD_REL_TOL),
+   with the value frozen, on the shared cases and off the map; each timed
+   beside its plain version, with the device activities and CUDA-graph
+   nodes of one call of each and its bound;
 3. model: the m det+seg model on the card, fp32, against the same weights
    on the CPU through the plain path;
 4. serving: ``TorchModel`` (m det+seg, bf16) answers 720p BGR frames, with
    the deformable-attention kernel's launch count read around the run;
 5. gradient: one backward of the m det+seg model at batch 8, through the
-   ``MSDeformAttnCore`` backward and its scatter kernel, counts read around it;
+   ``MSDeformAttnCore`` backward (its backward kernel and the scatter
+   kernel), counts read around it;
 6. train: the m detect train step (``make_train_step``: CDN queries,
    Hungarian matching on the device, criterion, AdamW, EMA) at 640 px,
    batch 8, bf16 autocast over fp32 parameters, with its kernel launches
-   counted per step (1 solver launch a step) and the solver's device ms a
-   step (CUDA events around it, and its kernel in a profile);
+   counted per step (1 solver launch a step, 4 backward launches) and the
+   solver's device ms a step (CUDA events around it, and its kernel in a
+   profile); then one step with the backward kernel and one with its plain
+   closed form patched in, in turns, profiled (device ms and activities);
 6b. hungarian: one more train step with its matching span (matching_cost,
    the solver, the go union) under ``set_sync_debug_mode("error")``; the
    Hungarian kernel (``csrc/hungarian_lap.cu``) against its plain version
@@ -138,12 +150,15 @@ The apps, on the trainer's experiment (``phase_apps``):
     ``.pt2``); the val frames relabelled with ``best``'s own fp32
     detections at the middle of the widest gap between their scores that
     no detection's eager and ``.pt2`` scores straddle (``keep_threshold``,
-    ``paired_spans``);
+    ``paired_spans``), in the first keep window of ``APPS_KEEP_WINDOWS``
+    that has one (``widened_threshold``; the window used is printed);
     ``python -m dfine_tpu_torch.apps.infer`` in a subprocess over the val
     frames with the most detections (files written, polygon lines and
     crops among them, 4 sampling launches a frame); ``apps.bench`` (eager, CUDA graph and
     ``.pt2`` rows: eager and graph F1 equal, the ``.pt2``'s at least
-    APPS_EXPORT_F1_SHARE of eager's; latency a frame); the ``.pt2`` against
+    APPS_EXPORT_F1_SHARE of eager's, or, where no window had a free gap,
+    with each detection of a straddling pair counted on both sides: kept in
+    both backends and dropped in both (``EitherWay``); latency a frame); the ``.pt2`` against
     the deploy-fused model served eagerly, its witness, detection by
     detection near the threshold (``threshold_drift``: scores within
     EXPORT_SCORE_ATOL, and the same F1 exactly wherever that drift changes
@@ -325,7 +340,8 @@ SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
 # the apps on the trainer's run: val relabelled with best's own detections
 # at keep_threshold's threshold (the middle of the widest score gap that
 # keeps APPS_KEEP // 2 to APPS_KEEP in the busiest frame, outside the spans
-# of the detections' eager and .pt2 scores where it can be); infer over the
+# of the detections' eager and .pt2 scores; where that window has no such
+# gap, the next of APPS_KEEP_WINDOWS that has one); infer over the
 # APPS_INFER_FRAMES val frames with the most of them; test_batching's sweep
 # over APPS_BATCH_IMAGES images a batch size, up to APPS_MAX_BATCH. The .pt2
 # is the deploy-fused model in bf16: its bench row must keep
@@ -333,16 +349,25 @@ SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
 # read 0.95, 0.96 and 1.0 of it on an H100 80GB HBM3 at 700 W, 0.72 once at
 # a threshold 1e-6 above a score, and 0.89 once in a gap of the fp32 scores
 # alone, which eager's and the .pt2's scores, up to 0.0045 apart, straddled
-# 1-7 times a run). TorchModel(deploy=True) in bf16, the
+# 1-7 times a run); where no window has a free gap, each detection of a
+# straddling pair counts on both sides (as COCO's ignore regions do): the
+# share must hold with those detections all kept in both backends and with
+# them all dropped (EitherWay). TorchModel(deploy=True) in bf16, the
 # same fused model eagerly, is its witness: near the threshold the .pt2's
 # scores stay within EXPORT_SCORE_ATOL of the witness's (as phase_export
 # holds them on one input), and where that drift moves no witness detection
 # across the threshold, bench's F1 of the two is equal exactly
 APPS_KEEP, APPS_INFER_FRAMES, APPS_BATCH_IMAGES, APPS_MAX_BATCH = 20, 4, 128, 32
 APPS_EXPORT_F1_SHARE = 0.9
+# the keep windows (least, most kept in the busiest val frame) tried in turn
+# for a threshold outside every eager/.pt2 span, the first APPS_KEEP's; no
+# window keeps fewer than 5 (a window reaching 1 took a free gap at the top
+# scores, 5 labels over 8 frames, on an H100: too few for quant's F1)
+APPS_KEEP_WINDOWS = ((APPS_KEEP // 2, APPS_KEEP), (APPS_KEEP // 4, 3 * APPS_KEEP // 2))
 # the scores near the threshold: each backend served at this much under the
-# lowest threshold that keeps APPS_KEEP in every val frame, and the
-# detections within half of it of conf compared (threshold_drift)
+# lowest threshold that keeps the widest keep window's most in every val
+# frame, and the detections within half of it of conf compared
+# (threshold_drift)
 APPS_DRIFT_WINDOW = 0.02
 # data parallelism (phase_dp): the m det+seg step at world 1 over NCCL (bf16,
 # SyncBN forced) against the plain step, then DP_STEPS timed; two gloo ranks
@@ -474,7 +499,8 @@ def profile_window(fn, n: int, top: int = 8) -> dict:
             "ours": {e.key: {"ms_per_launch": e.self_device_time_total / 1e3 / e.count,
                              "count_per_call": e.count / n}
                      for e in rows
-                     if any(k in e.key for k in ("ms_deform_attn_fwd_kernel", "rows_scatter_add",
+                     if any(k in e.key for k in ("ms_deform_attn_fwd_kernel",
+                                                 "ms_deform_attn_bwd_kernel", "rows_scatter_add",
                                                  "hungarian_lap_kernel"))}}
 
 
@@ -621,15 +647,14 @@ def _deform_inputs(dev, b, d, shapes, pts, value_dtype, seed, lo=-0.15, hi=1.15,
     return value.to(dev, value_dtype), loc.to(dev), att.softmax(-1).to(dev)
 
 
-def _deform_bound(v, l, a, shapes=M_SHAPES, pts=M_POINTS):
-    """The least time for this run's data: loc, att and the output once, and
-    of the value only the distinct (b, row, head) rows that a valid corner
-    of ``l`` reads (found as the plain version finds its corners); an FMA a
-    channel for each valid corner and each point's att."""
+def _touched(v, l, shapes, pts):
+    """The distinct (b, row, head) value rows that a valid corner of ``l``
+    reads (found as the plain version finds its corners), and the number
+    of valid corners."""
     import torch
 
     b, q, heads = l.shape[:3]
-    s, d = v.shape[1], v.shape[3]
+    s = v.shape[1]
     keys, corners, start, p0 = [], 0, 0, 0
     for (h, w), p in zip(shapes, pts):
         lv = l[:, :, :, p0:p0 + p].float()
@@ -646,10 +671,39 @@ def _deform_bound(v, l, a, shapes=M_SHAPES, pts=M_POINTS):
                 corners += int(valid.sum().item())
         start += h * w
         p0 += p
-    rows = torch.unique(torch.cat(keys)).numel()
+    return torch.unique(torch.cat(keys)).numel(), corners
+
+
+def _deform_bound(v, l, a, shapes=M_SHAPES, pts=M_POINTS):
+    """The least time for this run's data: loc, att and the output once, and
+    of the value only the rows that a valid corner reads (``_touched``); an
+    FMA a channel for each valid corner and each point's att."""
+    rows, corners = _touched(v, l, shapes, pts)
+    b, q, heads = l.shape[:3]
+    d = v.shape[3]
     nbytes = (rows * d * v.element_size() + l.numel() * 4 + a.numel() * 4
               + b * q * heads * d * 4)
     flops = corners * 2 * d + a.numel() * 2 * d
+    return bound(nbytes, flops)
+
+
+def _bwd_bound(v, l, a, payload, shapes=M_SHAPES, pts=M_POINTS):
+    """The backward kernel's least time for this run's data: the value rows
+    that a valid corner reads (``_touched``), loc, att and g_out read once;
+    grad_loc, grad_att and every entry's idx (4 B) and contrib (d channels
+    of the payload) written once, 4 B Q H P entries; an FMA a channel for
+    each valid corner's g.v and a product a channel for each entry's
+    contribution."""
+    import torch
+
+    rows, corners = _touched(v, l, shapes, pts)
+    b, q, heads = l.shape[:3]
+    d = v.shape[3]
+    entries = 4 * a.numel()
+    nbytes = (rows * d * v.element_size() + 2 * (l.numel() + a.numel()) * 4
+              + b * q * heads * d * 4
+              + entries * (4 + d * torch.empty((), dtype=payload).element_size()))
+    flops = corners * 2 * d + entries * d
     return bound(nbytes, flops)
 
 
@@ -968,9 +1022,13 @@ def phase_scatter_tiled(res):
 
 
 def phase_core_backward(res):
+    """``MSDeformAttnCore``'s backward (the backward kernel, then the
+    default scatter a level) against autograd of the plain core, with its
+    launches: one backward kernel and one scatter a level."""
     import torch
 
     from dfine_tpu_torch.ops.deform_attn import ms_deform_attn, ms_deform_attn_core
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     dev = torch.device(DEV)
     value, loc, att = _deform_inputs(dev, GRAD_BATCH, HEAD_DIM, M_SHAPES, M_POINTS,
@@ -979,8 +1037,17 @@ def phase_core_backward(res):
     grads = []
     for fn in (ms_deform_attn, ms_deform_attn_core):
         v, l, a = (t.clone().requires_grad_() for t in (value, loc, att))
-        (fn(v, M_SHAPES, l, a, M_POINTS) * g_out).sum().backward()
+        out = fn(v, M_SHAPES, l, a, M_POINTS)
+        reset_launch_counts()
+        (out * g_out).sum().backward()
+        sync()
+        if fn is ms_deform_attn:
+            counts = launch_counts()
         grads.append((v.grad, l.grad, a.grad))
+    want = {"ms_deform_attn_fwd": 0, "ms_deform_attn_bwd": 1, "rows_scatter_add": len(M_SHAPES),
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 0}
+    if counts != want:
+        raise AssertionError(f"core backward: launches {counts}, want {want}")
     errs = {}
     for name, ours, ref in zip(("value", "loc", "att"), *grads):
         scale = ref.abs().max().item() + 1e-9
@@ -988,7 +1055,120 @@ def phase_core_backward(res):
         if not errs[name] <= GRAD_REL_TOL:
             raise AssertionError(f"core backward grad {name}: rel err {errs[name]}")
     emit({"phase": "core_backward", "batch": GRAD_BATCH, "max_rel_err": errs,
-          "tol_rel": GRAD_REL_TOL})
+          "tol_rel": GRAD_REL_TOL, "launches": counts})
+
+
+def _bwd_against_plain(v, l, a, g, payload, shapes=M_SHAPES, pts=M_POINTS,
+                       need_value=True) -> dict:
+    """One call of the backward kernel against its plain version on the same
+    tensors: raise unless idx is equal, contrib bit-equal (each level's
+    block contiguous) and grad_att and grad_loc within GRAD_REL_TOL of their
+    largest value. Returns the largest absolute and relative errors."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd, ms_deform_attn_bwd_plain
+
+    ours = ms_deform_attn_bwd(v, shapes, l, a, g, pts, payload, need_value)
+    ref = ms_deform_attn_bwd_plain(v, shapes, l, a, g, pts, payload, need_value)
+    out = {}
+    for name, x, y in zip(("grad_att", "grad_loc"), ours[:2], ref[:2]):
+        err = (x - y).abs().max().item()
+        out[f"{name}_max_abs_err"] = err
+        out[f"{name}_max_rel_err"] = err / max(y.abs().max().item(), 1e-30)
+    out["max_abs_err"] = max(out["grad_att_max_abs_err"], out["grad_loc_max_abs_err"])
+    if need_value:
+        bits = torch.int16 if payload == torch.bfloat16 else torch.int32
+        out["idx_equal"] = all(torch.equal(x, y) for x, y in zip(ours[2], ref[2]))
+        out["contrib_bit_equal"] = all(
+            x.is_contiguous() and torch.equal(x.view(bits), y.view(bits))
+            for x, y in zip(ours[3], ref[3]))
+        out["entries"] = sum(x.numel() for x in ours[2])
+    else:
+        out["idx_equal"] = out["contrib_bit_equal"] = ours[2] is None and ours[3] is None
+    if not (out["grad_att_max_rel_err"] <= GRAD_REL_TOL and out["grad_loc_max_rel_err"]
+            <= GRAD_REL_TOL and out["idx_equal"] and out["contrib_bit_equal"]):
+        raise AssertionError(f"ms_deform_attn_bwd against its plain version: {out}")
+    return out
+
+
+def _bwd_cases_checks(dev) -> list:
+    """The backward kernel against its plain version on the cases shared
+    with the CPU tests (``tests/test_torch_port_deform_cases.py``: pixel
+    edges, one level, head dims 16 and 64, four levels, off the map), bf16
+    and f32 value, f32 and bf16 payload."""
+    import torch
+
+    _tests_on_path()
+    from test_torch_port_deform_cases import DEFORM_CASES, deform_case
+
+    checks = []
+    for case in DEFORM_CASES:
+        value, shapes, loc, att, pts = deform_case(case)
+        rng = np.random.default_rng(13)
+        g = torch.from_numpy(rng.normal(size=(loc.shape[0], loc.shape[1], HEADS
+                                              * value.shape[-1])).astype(np.float32)).to(dev)
+        l, a = torch.from_numpy(loc).to(dev), torch.from_numpy(att).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            v = torch.from_numpy(value).to(dev, dtype)
+            for payload in (torch.float32, torch.bfloat16):
+                checks.append({"case": case, "d": int(value.shape[-1]),
+                               "value": str(dtype).split(".")[1],
+                               "payload": str(payload).split(".")[1],
+                               **_bwd_against_plain(v, l, a, g, payload, shapes, pts)})
+    return checks
+
+
+def phase_core_bwd_kernel(res):
+    """The deformable-attention backward kernel (``csrc/ms_deform_attn_bwd.cu``)
+    against its plain version (the closed form) at the gradient path's train
+    shape: m@640, B = GRAD_BATCH, Q = QUERIES, 8 heads, locations in [-0.15,
+    1.15], bf16 value, at D = 32 and 64 with the f32 and the bf16 payload,
+    with the value frozen too, and on the shared cases; each timed beside
+    its plain version in this call (device ms by the profiler, call ms by
+    CUDA events), with the device activities (profiler) and the CUDA-graph
+    nodes of one call of each (one kernel node for the kernel), and the
+    bound of this run's data."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd, ms_deform_attn_bwd_plain
+
+    dev = torch.device(DEV)
+    runs = {}
+    for d in (HEAD_DIM, WIDE_HEAD_DIM):
+        v, l, a = _deform_inputs(dev, GRAD_BATCH, d, M_SHAPES, M_POINTS, torch.bfloat16, seed=11,
+                                 q=QUERIES)
+        g = torch.from_numpy(np.random.default_rng(12).normal(
+            size=(GRAD_BATCH, QUERIES, HEADS * d)).astype(np.float32)).to(dev)
+        for payload in (torch.float32, torch.bfloat16):
+            key = f"d{d}_{str(payload).split('.')[1]}_payload"
+            check = _bwd_against_plain(v, l, a, g, payload)
+            kernel = lambda: ms_deform_attn_bwd(v, M_SHAPES, l, a, g, M_POINTS, payload)  # noqa: E731
+            plain = lambda: ms_deform_attn_bwd_plain(  # noqa: E731
+                v, M_SHAPES, l, a, g, M_POINTS, payload)
+            bound_ms, bound_by = _bwd_bound(v, l, a, payload)
+            nodes = one_kernel(kernel, "ms_deform_attn_bwd", f"ms_deform_attn_bwd {key}")
+            runs[key] = {**check, **timings("", kernel, 100), **timings("plain_", plain, 10),
+                         "activities_per_call": len(_kernels_of(kernel)),
+                         "plain_activities_per_call": len(_kernels_of(plain)),
+                         "graph_nodes_per_call": len(nodes),
+                         "plain_graph_nodes_per_call": len(graph_nodes(plain)),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+            emit({"phase": "kernel_ms_deform_attn_bwd",
+                  "shape": f"m@640 B={GRAD_BATCH} Q={QUERIES} D={d} bf16 value, "
+                           f"{str(payload).split('.')[1]} payload", **runs[key]})
+        frozen = _bwd_against_plain(v, l, a, g, torch.float32, need_value=False)
+        same = [torch.equal(x, y) for x, y in zip(
+            ms_deform_attn_bwd(v, M_SHAPES, l, a, g, M_POINTS, need_value=False)[:2],
+            ms_deform_attn_bwd(v, M_SHAPES, l, a, g, M_POINTS)[:2])]
+        runs[f"d{d}_value_frozen"] = {**frozen, "grads_bit_equal_to_full": all(same)}
+        if not all(same):
+            raise AssertionError(f"ms_deform_attn_bwd at D = {d}: the value-frozen call's "
+                                 "gradients differ from the full call's")
+        del v, l, a, g
+    checks = _bwd_cases_checks(dev)
+    res["deform_bwd"] = runs
+    emit({"phase": "kernel_ms_deform_attn_bwd_checks", "tol_rel": GRAD_REL_TOL,
+          "value_frozen": {k: v for k, v in runs.items() if "frozen" in k}, "cases": checks})
 
 
 def phase_model(res):
@@ -1108,8 +1288,9 @@ def phase_serving(res):
     emit({"phase": "serving_profile", "what": "TorchModel.__call__, per frame", **prof,
           "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50})
     want = DECODER_LAYERS * SERVE_FRAMES
-    if counts["ms_deform_attn_fwd"] != want:
-        raise AssertionError(f"deform kernel launched {counts['ms_deform_attn_fwd']}x, want {want}")
+    if counts["ms_deform_attn_fwd"] != want or counts["ms_deform_attn_bwd"]:
+        raise AssertionError(f"deform kernels launched {counts['ms_deform_attn_fwd']}x (want "
+                             f"{want}) and the backward {counts['ms_deform_attn_bwd']}x (want 0)")
 
 
 def phase_gradient(res):
@@ -1145,7 +1326,7 @@ def phase_gradient(res):
           "params_with_grad": len(grads), "grads_finite": finite, "launches": counts})
     emit({"phase": "gradient_profile", "what": "forward + backward, per step",
           **profile_window(step, 2)})
-    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 0}
     if counts != want or not finite or stem_grad is None or not stem_grad.abs().sum().item() > 0:
@@ -1261,9 +1442,40 @@ def timed_matching(events: list):
         matcher.hungarian = orig
 
 
+@contextlib.contextmanager
+def plain_deform_bwd():
+    """``MSDeformAttnCore``'s backward with the plain closed form in place
+    of the backward kernel, on the card too: the step as it ran before the
+    kernel, for measuring the two side by side only."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd_plain
+
+    kernel = tda.ms_deform_attn_bwd
+    tda.ms_deform_attn_bwd = ms_deform_attn_bwd_plain
+    try:
+        yield
+    finally:
+        tda.ms_deform_attn_bwd = kernel
+
+
+def bwd_turns(step_fn) -> dict:
+    """One train step (``step_fn``, ending in a synchronise) profiled with
+    the backward kernel and with the plain closed form (``plain_deform_bwd``),
+    in turns (kernel, plain, plain, kernel): device busy ms, device
+    activities and wall ms (the profiler's cost in it) of each."""
+    out = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        with plain_deform_bwd() if which == "plain" else contextlib.nullcontext():
+            prof = profile_window(step_fn, 1, top=0)
+        out[which].append({k: prof[k] for k in ("device_busy_ms", "device_activities_per_call",
+                                                "wall_ms")})
+    return out
+
+
 def phase_train(res):
     """The m detect train step on the card: bf16 autocast, fp32 parameters,
-    the default (``"pallas"``) deformable-attention backward."""
+    the default (``"pallas"``) deformable-attention backward; then the step
+    with the backward kernel and with the plain closed form in turns."""
     import torch
 
     from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1277,7 +1489,7 @@ def phase_train(res):
     sync()
     p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
     e0 = {k: v.detach().clone() for k, v in state.ema.named_parameters()}
-    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     times, per_step, metrics, total = [], [], [], {k: 0 for k in want}
@@ -1316,6 +1528,10 @@ def phase_train(res):
     res["train_solver"] = solver
     emit({"phase": "train_profile", "what": "one train step",
           "hungarian_device_per_step": solver, **prof})
+    res["train_bwd_turns"] = bwd_turns(lambda: (step(state, batch, gen), sync()))
+    emit({"phase": "train_bwd_turns", "what": "one train step with the deform backward's "
+          "kernel and with its plain closed form, in turns (profiler)",
+          **res["train_bwd_turns"]})
     res["train_run"] = (state, step, batch, gen)
     bad = [c for c in per_step if c != want]
     if bad or not finite or not grads_finite:
@@ -1796,7 +2012,8 @@ def phase_train_bwd_variants(res):
                     / sum(float(g0[k].norm()) ** 2 for k in g0))}
             res[f"{impl}_counts"] = counts
             name = f"rows_scatter_add_{impl}"
-            if counts[name] != want or counts["rows_scatter_add"]:
+            if (counts[name] != want or counts["rows_scatter_add"]
+                    or counts["ms_deform_attn_bwd"] != DECODER_LAYERS):
                 failures.append(f"{impl} {mode}: launches {counts}, want {want} of {name}")
             if abs(loss - loss0) > 1e-6 * abs(loss0):
                 failures.append(f"{impl} {mode}: loss {loss} vs the default's {loss0}")
@@ -2108,7 +2325,7 @@ def phase_train_seg(res):
                  if k.startswith(("decoder.pixel_decoder.", "decoder.mask_head."))]
     p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
     e0 = {k: v.detach().clone() for k, v in state.ema.named_parameters()}
-    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     times, per_step, total, terms = [], [], {k: 0 for k in want}, []
@@ -2191,7 +2408,8 @@ def phase_train_l_frozen(res):
     frozen = {k for k, keep in mask.items() if not keep}
     batch = make_train_batch(L_BATCH, seed=9, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    want = {"ms_deform_attn_fwd": L_DECODER_LAYERS, "hungarian_lap": 1,
+    want = {"ms_deform_attn_fwd": L_DECODER_LAYERS, "ms_deform_attn_bwd": L_DECODER_LAYERS,
+            "hungarian_lap": 1,
             "rows_scatter_add": L_DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0}
     checks, failures, per_step, times = [], [], [], []
@@ -2898,6 +3116,7 @@ def _trainer_run(trainer) -> dict:
     steps = len(trainer.timing["step_s"])
     eval_batches = sum(-(-e["images"] // bs) for e in trainer.timing["eval"])
     want = {"ms_deform_attn_fwd": DECODER_LAYERS * (steps + eval_batches),
+            "ms_deform_attn_bwd": DECODER_LAYERS * steps,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": steps}
     if counts != want:
@@ -3143,7 +3362,7 @@ def calls_vs_plain(calls: dict) -> dict:
 
 def _dp_step_counts() -> dict:
     """The launches of one det+seg train step."""
-    return {"ms_deform_attn_fwd": DECODER_LAYERS,
+    return {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
 
@@ -3585,6 +3804,7 @@ def _dp_trainer(res, failures) -> dict:
     batches = -(-n_val // DP_TRAINER_BATCH)
     want = [{"ms_deform_attn_fwd": DECODER_LAYERS * (steps + a["evals"] * len(
                 range(r, batches, 2))),
+             "ms_deform_attn_bwd": DECODER_LAYERS * steps,
              "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
              "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": steps}
             for r in range(2)]
@@ -3633,7 +3853,8 @@ def _dp_trainer(res, failures) -> dict:
         failures.append(f"trainer: writes rank 0 {len(a['writes'])}, rank 1 {b['writes']}")
     if [r["counts"] for r in ranks] != want:
         failures.append(f"trainer: launches {[r['counts'] for r in ranks]}, want {want}")
-    if not served_ok or serve_counts["ms_deform_attn_fwd"] != DECODER_LAYERS:
+    if (not served_ok or serve_counts["ms_deform_attn_fwd"] != DECODER_LAYERS
+            or serve_counts["ms_deform_attn_bwd"]):
         failures.append(f"trainer: serving best {out['served_best']}")
     res["dp_trainer_counts"] = [r["counts"] for r in ranks]
     return out
@@ -3663,10 +3884,11 @@ def phase_dp(res):
         raise AssertionError("dp: " + "; ".join(failures))
 
 
-def keep_threshold(scores, keep: int, spans=()):
+def keep_threshold(scores, keep: int, spans=(), low=None):
     """A confidence threshold for ``scores``, one array a frame (any order;
     a frame may have none), among those that keep (score >= threshold)
-    between ``keep // 2`` and ``keep`` detections in the busiest frame.
+    between ``low`` (``keep // 2`` by default) and ``keep`` detections in
+    the busiest frame.
     ``spans``, one [N, 2] array a frame, are the (low, high) scores one
     detection gets from two backends (``paired_spans``); a threshold inside
     a span (low < threshold <= high) keeps the detection in one backend and
@@ -3679,6 +3901,7 @@ def keep_threshold(scores, keep: int, spans=()):
     threshold as a float32 strictly between the two. Raises ValueError
     where no threshold keeps that many (too few scores, or a tie across
     the window)."""
+    low = keep // 2 if low is None else low
     frames = [np.sort(np.asarray(f, np.float32).ravel()) for f in scores]
     sp = np.concatenate([np.zeros((0, 2), np.float32),
                          *(np.asarray(x, np.float32).reshape(-1, 2) for x in spans)])
@@ -3687,9 +3910,9 @@ def keep_threshold(scores, keep: int, spans=()):
     busiest = np.zeros(len(hi), int)
     for f in frames:
         busiest = np.maximum(busiest, len(f) - np.searchsorted(f, hi, side="left"))
-    ok = (busiest >= keep // 2) & (busiest <= keep)
+    ok = (busiest >= low) & (busiest <= keep)
     if not ok.any():
-        raise ValueError(f"no threshold keeps {keep // 2}-{keep} detections in the busiest "
+        raise ValueError(f"no threshold keeps {low}-{keep} detections in the busiest "
                          f"frame ({len(distinct)} distinct scores in {len(frames)} frames)")
     # the spans over (lo, hi): low <= lo and high >= hi, i.e. high > lo
     inside = (np.searchsorted(np.sort(sp[:, 0]), lo, side="right")
@@ -3701,6 +3924,80 @@ def keep_threshold(scores, keep: int, spans=()):
     if not lo[k] < threshold < hi[k]:
         raise ValueError(f"no float32 lies between the scores {lo[k]} and {hi[k]}")
     return float(threshold), float(gaps[k]), float(lo[k]), float(hi[k]), int(fewest)
+
+
+def widened_threshold(scores, spans, windows):
+    """``keep_threshold`` over each keep window (low, high) of ``windows`` in
+    turn, until one holds a gap that no span straddles; where none does,
+    the window whose threshold lies inside the fewest spans (the first of
+    equal ones). Returns ``keep_threshold``'s tuple and the window used.
+    Raises ValueError where no window has a threshold at all."""
+    best = None
+    for low, high in windows:
+        try:
+            got = keep_threshold(scores, high, spans, low=low)
+        except ValueError:
+            continue
+        if best is None or got[4] < best[0][4]:
+            best = (got, (low, high))
+        if got[4] == 0:
+            break
+    if best is None:
+        raise ValueError(f"no keep window of {windows} has a threshold")
+    return best
+
+
+def straddling(ref, ours, conf: float):
+    """One (ref boxes [K, 4], our boxes [K, 4], lowest score) a frame of the
+    detections that two backends' (boxes [N, 4], scores [N]) of the same
+    frames pair by box (``align_by_box``) with their two scores on two
+    sides of ``conf``, the lowest score of those pairs (None where a frame
+    has none)."""
+    out = []
+    for (rb, rs), (ob, os_) in zip(ref, ours):
+        rb, ob = (np.asarray(b, np.float64).reshape(-1, 4) for b in (rb, ob))
+        rs, os_ = (np.asarray(x, np.float32).ravel() for x in (rs, os_))
+        cross = np.zeros(len(rs), bool)
+        match = align_by_box(rb, ob) if len(rs) and len(os_) else np.full(len(rs), -1)
+        paired = match >= 0
+        cross[paired] = (rs[paired] >= conf) != (os_[match[paired]] >= conf)
+        theirs = os_[match[cross]]
+        low = float(min(rs[cross].min(), theirs.min())) if cross.any() else None
+        out.append((rb[cross], ob[match[cross]], low))
+    return out
+
+
+class EitherWay:
+    """A serving backend as ``apps.bench.test_model`` calls it, frame by
+    frame (the frames of ``straddling``'s list, in order), answering at
+    ``conf`` with each detection of a straddling pair taken as kept
+    (``kept``) or as dropped, alike in both backends: where they are kept,
+    the frame is served at its lowest straddling score (so that they are
+    there; the masks binarise at that threshold, in both backends) and
+    every other detection under ``conf`` dropped. A detection is one of the
+    pair by its box (within BOX_L1 of the L1 distance: a frame served twice
+    gives the same boxes)."""
+
+    BOX_L1 = 1e-2
+    PER_DETECTION = ("boxes", "scores", "labels", "masks")  # all_* hold every query
+
+    def __init__(self, model, straddle, side: int, conf: float, kept: bool):
+        self.model, self.straddle, self.side = model, straddle, side
+        self.conf, self.kept, self.frame = conf, kept, 0
+
+    def __call__(self, img):
+        boxes_of_pairs, low = self.straddle[self.frame][self.side], self.straddle[self.frame][2]
+        self.frame += 1
+        self.model.conf_thresh = self.conf if low is None or not self.kept else min(self.conf, low)
+        (det,) = self.model(img)
+        boxes = np.asarray(det["boxes"], np.float64).reshape(-1, 4)
+        pair = np.zeros(len(boxes), bool)
+        if len(boxes) and len(boxes_of_pairs):
+            dist = np.abs(boxes[:, None, :] - boxes_of_pairs[None, :, :]).sum(-1)
+            pair = dist.min(1) <= self.BOX_L1
+        keep = np.where(pair, self.kept, np.asarray(det["scores"]) >= self.conf)
+        return [{k: (np.asarray(v)[keep] if k in self.PER_DETECTION else v)
+                 for k, v in det.items()}]
 
 
 def paired_spans(ref, ours):
@@ -3814,9 +4111,10 @@ def counted(launches: dict, name: str):
 
 
 def _want_deform(counts: dict, n: int, name: str) -> None:
-    """``counts`` holds n sampling launches and no scatter or solver launch."""
-    want = {"ms_deform_attn_fwd": n, "rows_scatter_add": 0, "rows_scatter_add_mxu": 0,
-            "rows_scatter_add_tiled": 0, "hungarian_lap": 0}
+    """``counts`` holds n sampling launches and no backward, scatter or
+    solver launch."""
+    want = {"ms_deform_attn_fwd": n, "ms_deform_attn_bwd": 0, "rows_scatter_add": 0,
+            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 0}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, want {want}")
 
@@ -3893,13 +4191,15 @@ def phase_apps(res):
 
         # the relabel threshold: over best's own fp32 scores of the val
         # frames, in the widest gap that no detection's eager and .pt2 scores
-        # straddle (bench compares the two), each backend served at
-        # APPS_DRIFT_WINDOW under the lowest threshold that keeps APPS_KEEP
-        # in every frame, on bench's frames
+        # straddle (bench compares the two), in the first keep window of
+        # APPS_KEEP_WINDOWS that has one; each backend served at
+        # APPS_DRIFT_WINDOW under the lowest threshold that keeps the widest
+        # window's most in every frame, on bench's frames
         decoded = val_decoded(tr)
         ref_scores = [d["scores"][0].float().cpu().numpy() for d, _ in decoded]
-        floor = max((float(np.sort(f)[::-1][APPS_KEEP]) for f in ref_scores
-                     if len(f) > APPS_KEEP), default=0.0)
+        most = APPS_KEEP_WINDOWS[-1][1]
+        floor = max((float(np.sort(f)[::-1][most]) for f in ref_scores if len(f) > most),
+                    default=0.0)
         cfg = cli_config(base_argv)
         weights = str(experiment_dir(cfg) / "best.ckpt")
         bench_ds = Loader(Path(cfg.train.data_path), cfg.train, task=cfg.task).dataset(
@@ -3912,11 +4212,13 @@ def phase_apps(res):
                 (det,) = model(read_bgr(bench_ds._paths(i)[0]))
                 out.append((np.asarray(det["boxes"]), np.asarray(det["scores"])))
             return out
-        served = {"pt2": serve(ExportedModel(cfg.model_name, weights,
-                                             artifact_path=str(artifacts["exported"]), **lo)),
-                  "eager": serve(TorchModel(cfg.model_name, weights, **lo))}
+        backends = {"pt2": ExportedModel(cfg.model_name, weights,
+                                         artifact_path=str(artifacts["exported"]), **lo),
+                    "eager": TorchModel(cfg.model_name, weights, **lo)}
+        served = {k: serve(m) for k, m in backends.items()}
         spans = paired_spans(served["eager"], served["pt2"])
-        conf, gap, below, above, contested = keep_threshold(ref_scores, APPS_KEEP, spans)
+        (conf, gap, below, above, contested), window = widened_threshold(
+            ref_scores, spans, APPS_KEEP_WINDOWS)
         kept = relabel_val(tr, decoded, conf)
         tr.conf_thresh = conf
         # infer's source: the val frames with the most detections at conf
@@ -3925,7 +4227,8 @@ def phase_apps(res):
         for i in sorted(range(len(val_names)), key=lambda i: -kept[i])[:APPS_INFER_FRAMES]:
             shutil.copy(os.path.join(ds, "images", val_names[i]), test_dir)
         argv = base_argv + [f"train.conf_thresh={conf}"]
-        emit({"phase": "apps", "step": "relabel", "conf_thresh": conf, "keep": APPS_KEEP,
+        emit({"phase": "apps", "step": "relabel", "conf_thresh": conf,
+              "keep_window": window, "keep_windows": APPS_KEEP_WINDOWS,
               "threshold_gap": {"gap": gap, "nearest_below": below, "nearest_above": above,
                                 "eager_pt2_spans": int(sum(len(x) for x in spans)),
                                 "spans_straddling": contested},
@@ -3968,9 +4271,31 @@ def phase_apps(res):
                                  **{**lo, "conf_thresh": conf})
             fused = bench_app.test_model(witness, bench_ds, label_names(cfg),
                                          cfg.train.iou_thresh)
+        # where the threshold lies inside spans (no window had a free gap),
+        # each detection of a straddling eager/.pt2 pair counts on both
+        # sides: bench's F1 of both backends with those all kept and with
+        # them all dropped, and the .pt2's share taken either way
+        metrics = ("f1", "precision", "recall", "iou")
+        rows_ok = (list(by) == ["torch-eager", "torch-cuda-graph", "torch-export"]
+                   and all(by["torch-eager"][k] == by["torch-cuda-graph"][k] for k in metrics))
+        either, straddle = {}, straddling(served["eager"], served["pt2"], conf)
+        if rows_ok and contested:
+            for kept in (True, False):
+                either["kept" if kept else "dropped"] = {
+                    name: bench_app.test_model(EitherWay(backends[name], straddle, side, conf,
+                                                         kept), bench_ds, label_names(cfg),
+                                               cfg.train.iou_thresh)["f1"]
+                    for name, side in (("eager", 0), ("pt2", 1))}
+            share_ok = all(e["pt2"] >= APPS_EXPORT_F1_SHARE * e["eager"] for e in either.values())
+        else:
+            share_ok = rows_ok and (by["torch-export"]["f1"]
+                                    >= APPS_EXPORT_F1_SHARE * by["torch-eager"]["f1"])
+        del backends
         emit({"phase": "apps", "app": "bench", "seconds": bench_s, "rows": rows,
               "launches": launches["bench"], "val_frames": len(val_names),
               "export_f1_share_min": APPS_EXPORT_F1_SHARE,
+              "straddling_pairs": sum(len(x[0]) for x in straddle),
+              "f1_either_way": either or None,
               "fused_eager_witness": fused, "fused_eager_launches": launches["bench_fused_eager"]})
         nv = len(val_names)
         # eager and .pt2: 4 a call (the smoke check at load, then each frame);
@@ -3978,11 +4303,8 @@ def phase_apps(res):
         # replay runs them on the card without the wrapper)
         _want_deform(launches["bench"], DECODER_LAYERS * (2 * (nv + 1) + 3), "bench")
         _want_deform(launches["bench_fused_eager"], DECODER_LAYERS * (nv + 1), "bench witness")
-        metrics = ("f1", "precision", "recall", "iou")
-        if (list(by) != ["torch-eager", "torch-cuda-graph", "torch-export"]
-                or any(by["torch-eager"][k] != by["torch-cuda-graph"][k] for k in metrics)
-                or by["torch-export"]["f1"] < APPS_EXPORT_F1_SHARE * by["torch-eager"]["f1"]):
-            failures.append(f"bench: {rows}")
+        if not share_ok:
+            failures.append(f"bench: {rows}, either way {either}")
         # the scores near the threshold, detection by detection: the .pt2
         # against its witness (one program: held within EXPORT_SCORE_ATOL, and
         # to the same F1 exactly wherever no witness score lies within that
@@ -4169,18 +4491,24 @@ def phase_apps(res):
 
 @contextlib.contextmanager
 def launch_widths(acc: dict):
-    """Count, in ``acc[(kernel, D)]``, every call of the sampling op and of
-    the value-gradient scatter chosen by ``set_deform_bwd`` made while the
-    context is open, by the head dim of its value; each call still goes on
-    to its kernel (and its wrapper's own count)."""
+    """Count, in ``acc[(kernel, D)]``, every call of the sampling op, of the
+    backward and of the value-gradient scatter chosen by ``set_deform_bwd``
+    made while the context is open, by the head dim of its value; each call
+    still goes on to its kernel (and its wrapper's own count)."""
     from dfine_tpu_torch.ops import deform_attn as tda
 
     op, scatters, default = tda.ms_deform_attn_op, dict(tda._SCATTERS), tda.rows_scatter_add
+    bwd = tda.ms_deform_attn_bwd
 
     def sampling(value, flat, loc, att, pts):
         key = ("ms_deform_attn_fwd", int(value.shape[3]))
         acc[key] = acc.get(key, 0) + 1
         return op(value, flat, loc, att, pts)
+
+    def backward(value, *args):
+        key = ("ms_deform_attn_bwd", int(value.shape[3]))
+        acc[key] = acc.get(key, 0) + 1
+        return bwd(value, *args)
 
     def counted_scatter(fn):
         def call(idx, contrib, hw):
@@ -4192,11 +4520,13 @@ def launch_widths(acc: dict):
     shims = {k: counted_scatter(fn) for k, fn in scatters.items()}
     # the backward picks the f32 payload by the identity of rows_scatter_add
     tda.ms_deform_attn_op, tda.rows_scatter_add = sampling, shims["pallas"]
+    tda.ms_deform_attn_bwd = backward
     tda._SCATTERS.update(shims)
     try:
         yield acc
     finally:
         tda.ms_deform_attn_op, tda.rows_scatter_add = op, default
+        tda.ms_deform_attn_bwd = bwd
         tda._SCATTERS.update(scatters)
 
 
@@ -4214,7 +4544,8 @@ def _tests_on_path() -> None:
 def _deform_cases_checks(dev) -> list:
     """The sampling kernel against its plain version on the cases shared
     with the CPU tests (``tests/test_torch_port_deform_cases.py``: pixel
-    edges, one level, head dims 16 and 64, four levels), bf16 and f32."""
+    edges, one level, head dims 16 and 64, four levels, off the map), bf16
+    and f32."""
     import torch
 
     _tests_on_path()
@@ -4396,12 +4727,14 @@ def phase_wide_tail(res):
     for _ in range(TRAIN_WARMUP):
         step(state, batch, gen)
     sync()
-    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     narrow = DECODER_LAYERS - WIDE_LAYERS
     want_widths = {("ms_deform_attn_fwd", HEAD_DIM): narrow,
                    ("ms_deform_attn_fwd", WIDE_HEAD_DIM): WIDE_LAYERS,
+                   ("ms_deform_attn_bwd", HEAD_DIM): narrow,
+                   ("ms_deform_attn_bwd", WIDE_HEAD_DIM): WIDE_LAYERS,
                    ("rows_scatter_add", HEAD_DIM): narrow * len(M_SHAPES),
                    ("rows_scatter_add", WIDE_HEAD_DIM): WIDE_LAYERS * len(M_SHAPES)}
     times, per_step, widths, metrics = [], [], [], []
@@ -4547,7 +4880,7 @@ def phase_extra_level(res):
     counts = launch_counts()
     res["extra_counts"] = counts
     moved = sum(int(not torch.equal(p0[k], v)) for k, v in model.named_parameters())
-    want = {"ms_deform_attn_fwd": DECODER_LAYERS,
+    want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * EXTRA_LEVELS,
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
     finite = all(np.isfinite(float(v)) for v in m.values())
@@ -4791,6 +5124,36 @@ def kernel_line(res):
          "extra_level_launches": res["extra_counts"][name]}
         for name, line, counts, path, symbol in scatters
     ] + [
+        {"name": "ms_deform_attn_bwd", "route": "cuda",
+         "source": "dfine_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+         # the custom VJP's closed form (XLA device code): no Pallas counterpart
+         "replaces": "dfine_tpu/ops/deform_attn.py:306",
+         "launches": res["train_counts"]["ms_deform_attn_bwd"],
+         "path": f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one call at m@640, "
+                 f"B = {GRAD_BATCH}, Q = {QUERIES}, D = {HEAD_DIM}, bf16 value, f32 payload)",
+         "gradient_launches": res["gradient_counts"]["ms_deform_attn_bwd"],
+         "train_seg_launches": res["train_seg_counts"]["ms_deform_attn_bwd"],
+         "train_l_launches": res["train_l_counts"]["ms_deform_attn_bwd"],
+         "mxu_launches": res["mxu_counts"]["ms_deform_attn_bwd"],
+         "tiled_launches": res["tiled_counts"]["ms_deform_attn_bwd"],
+         "trainer_launches": res["trainer_counts"]["ms_deform_attn_bwd"],
+         "dp_launches": dp_launches(res, "ms_deform_attn_bwd"),
+         "wide_launches": wide_launches(res, "ms_deform_attn_bwd"),
+         "extra_level_launches": res["extra_counts"]["ms_deform_attn_bwd"],
+         "serving_launches": res["serving_counts"]["ms_deform_attn_bwd"],
+         "apps_launches": sum(c["ms_deform_attn_bwd"] for c in res["apps_counts"].values()),
+         "max_abs_err": max(r["max_abs_err"] for r in res["deform_bwd"].values()),
+         "idx_equal": all(r["idx_equal"] for r in res["deform_bwd"].values()),
+         "contrib_bit_equal": all(r["contrib_bit_equal"] for r in res["deform_bwd"].values()),
+         **{k: res["deform_bwd"][f"d{HEAD_DIM}_float32_payload"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "activities_per_call",
+             "plain_activities_per_call", "graph_nodes_per_call", "plain_graph_nodes_per_call")},
+         "library_ms": None,  # no single PyTorch call computes it
+         "variants": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "max_abs_err")}
+                      for k, r in res["deform_bwd"].items() if "frozen" not in k},
+         "train_in_situ_ms": in_situ_ms(res, "ms_deform_attn_bwd_kernel"),
+         "train_step_turns": res["train_bwd_turns"]},
         {"name": "hungarian_lap", "route": "cuda",
          "source": "dfine_tpu_torch/csrc/hungarian_lap.cu",
          "replaces": "dfine_tpu/ops/hungarian.py:48",  # XLA _solve_one: no Pallas counterpart
@@ -4845,7 +5208,8 @@ def main() -> int:
 
     res, failed = {}, []
     for fn in (phase_build, phase_deform_fwd, phase_scatter, phase_scatter_mxu,
-               phase_scatter_tiled, phase_core_backward, phase_model, phase_serving,
+               phase_scatter_tiled, phase_core_backward, phase_core_bwd_kernel, phase_model,
+               phase_serving,
                phase_gradient, phase_train, phase_hungarian, phase_scatter_in_situ,
                phase_train_bwd_variants,
                phase_train_parity, phase_train_seg, phase_train_seg_parity,

@@ -5,10 +5,12 @@
 ``MSDeformAttnCore`` is the op the model runs: its forward is the custom op
 ``dfine_tpu_torch::ms_deform_attn_fwd`` (the sampling kernel on the card,
 the plain version on the CPU), its backward computes the location and
-attention gradients in closed form (the corner tables of
-deform_attn.py:235-241) and sends each
-level's value gradient through the scatter kernel that ``set_deform_bwd``
-chose, as ``ms_deform_attn_core_fused(scatter_impl=...)`` does:
+attention gradients and the value gradient's scatter inputs in closed form
+(deform_attn.py:306-434, the corner tables at :235-241) in one call of
+``ms_deform_attn_bwd`` for all levels (the backward kernel on the card, its
+plain version on the CPU) and sends each level's value gradient through
+the scatter kernel that ``set_deform_bwd`` chose, as
+``ms_deform_attn_core_fused(scatter_impl=...)`` does:
 
 - ``"pallas"`` (the default): ``rows_scatter_add``, f32 payload;
 - ``"mxu"``: ``rows_scatter_add_mxu``, payload rounded once to bf16;
@@ -27,7 +29,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .kernels.deform_attn import ms_deform_attn_fwd_plain, ms_deform_attn_op
+from .kernels.deform_attn import ms_deform_attn_bwd, ms_deform_attn_fwd_plain, ms_deform_attn_op
 from .kernels.scatter_rows import rows_scatter_add, rows_scatter_add_mxu, rows_scatter_add_tiled
 
 ms_deform_attn_core = ms_deform_attn_fwd_plain
@@ -49,14 +51,6 @@ def set_deform_bwd(impl: str) -> None:
 
 def deform_bwd_impl() -> str:
     return _DEFORM_BWD
-
-# (dy, dx, weight, d weight / d fx, d weight / d fy) per bilinear corner
-_CORNER_TABLE = (
-    (0, 0, lambda fx, fy: (1 - fx) * (1 - fy), lambda fx, fy: -(1 - fy), lambda fx, fy: -(1 - fx)),
-    (0, 1, lambda fx, fy: fx * (1 - fy), lambda fx, fy: (1 - fy), lambda fx, fy: -fx),
-    (1, 0, lambda fx, fy: (1 - fx) * fy, lambda fx, fy: -fy, lambda fx, fy: (1 - fx)),
-    (1, 1, lambda fx, fy: fx * fy, lambda fx, fy: fy, lambda fx, fy: fx),
-)
 
 
 class MSDeformAttnCore(torch.autograd.Function):
@@ -82,65 +76,18 @@ class MSDeformAttnCore(torch.autograd.Function):
         need_value = ctx.needs_input_grad[0]
         b, q = loc.shape[:2]
         nhead, d = value.shape[2], value.shape[3]
-        f32 = torch.float32
         # mxu/tiled: each contribution is rounded once to bf16 (scatter_rows.py:184, :282)
-        payload = f32 if ctx.scatter is rows_scatter_add else torch.bfloat16
-        g = g_out.reshape(b, q, nhead, d).to(f32)
-        att32 = att.to(f32)
-        grad_loc = torch.zeros(loc.shape, dtype=f32, device=loc.device)
-        grad_att = torch.zeros(att.shape, dtype=f32, device=att.device)
-        grad_val_parts = []
-        hw_start = p_start = 0
-        for (h, w), p in zip(ctx.spatial_shapes, ctx.num_points):
-            hw = h * w
-            v_t = value[:, hw_start : hw_start + hw].to(f32).permute(0, 2, 1, 3)  # [B,H,HW,D]
-            l = loc[:, :, :, p_start : p_start + p].to(f32)
-            a = att32[:, :, :, p_start : p_start + p]  # [B,Q,H,P]
-            x = l[..., 0] * w - 0.5
-            y = l[..., 1] * h - 0.5
-            x0 = torch.floor(x)
-            y0 = torch.floor(y)
-            fx = x - x0
-            fy = y - y0
-            x0i = x0.long()
-            y0i = y0.long()
-
-            ga_l = torch.zeros_like(a)
-            gfx = torch.zeros_like(a)
-            gfy = torch.zeros_like(a)
-            idx_parts, contrib_parts = [], []
-            for dy, dx, w_fn, dwdx_fn, dwdy_fn in _CORNER_TABLE:
-                xi = x0i + dx
-                yi = y0i + dy
-                valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-                idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)  # [B,Q,H,P]
-                idx_t = idx.permute(0, 2, 1, 3).reshape(b, nhead, q * p, 1)
-                vc = torch.gather(v_t, 2, idx_t.expand(-1, -1, -1, d))
-                vc = vc.reshape(b, nhead, q, p, d).permute(0, 2, 1, 3, 4)  # [B,Q,H,P,D]
-                g_dot_v = torch.einsum("bqhd,bqhpd->bqhp", g, vc)
-                m = valid.to(f32)
-                wgt = w_fn(fx, fy) * m
-                ga_l = ga_l + wgt * g_dot_v
-                gfx = gfx + m * dwdx_fn(fx, fy) * g_dot_v
-                gfy = gfy + m * dwdy_fn(fx, fy) * g_dot_v
-                if need_value:
-                    contrib = (a * wgt)[..., None] * g[:, :, :, None, :]  # [B,Q,H,P,D]
-                    idx_eff = torch.where(valid, idx, -1)
-                    idx_parts.append(idx_eff.permute(0, 2, 1, 3).reshape(b * nhead, q * p))
-                    contrib_parts.append(
-                        contrib.permute(0, 2, 1, 3, 4).reshape(b * nhead, q * p, d).to(payload))
-            grad_att[:, :, :, p_start : p_start + p] = ga_l
-            grad_loc[:, :, :, p_start : p_start + p, 0] = a * gfx * w  # dx/du = W
-            grad_loc[:, :, :, p_start : p_start + p, 1] = a * gfy * h
-            if need_value:
-                idx_all = torch.cat(idx_parts, 1).to(torch.int32).contiguous()
-                contrib_all = torch.cat(contrib_parts, 1).contiguous()
-                gv = ctx.scatter(idx_all, contrib_all, hw)  # [B*H, HW, D]
-                grad_val_parts.append(gv.reshape(b, nhead, hw, d).permute(0, 2, 1, 3))
-            hw_start += hw
-            p_start += p
-
-        grad_value = torch.cat(grad_val_parts, 1).to(value.dtype) if need_value else None
+        payload = torch.float32 if ctx.scatter is rows_scatter_add else torch.bfloat16
+        g = g_out.reshape(b, q, nhead * d).to(torch.float32).contiguous()
+        grad_att, grad_loc, idx, contrib = ms_deform_attn_bwd(
+            value, ctx.spatial_shapes, loc, att, g, ctx.num_points, payload, need_value)
+        grad_value = None
+        if need_value:
+            grad_val_parts = []
+            for (h, w), idx_l, contrib_l in zip(ctx.spatial_shapes, idx, contrib):
+                gv = ctx.scatter(idx_l, contrib_l, h * w)  # [B*H, HW, D]
+                grad_val_parts.append(gv.reshape(b, nhead, h * w, d).permute(0, 2, 1, 3))
+            grad_value = torch.cat(grad_val_parts, 1).to(value.dtype)
         return grad_value, grad_loc.to(loc.dtype), grad_att.to(att.dtype), None, None
 
 

@@ -1,14 +1,15 @@
 """Hand-written CUDA kernels (sources in ``dfine_tpu_torch/csrc``), each
 beside its plain PyTorch version and with a launch counter on its wrapper."""
 
-from .deform_attn import (HEAD_DIMS, MAX_LEVELS, MAX_POINTS, ms_deform_attn_fwd,  # noqa: F401
-                          ms_deform_attn_fwd_plain, ms_deform_attn_op)
+from .deform_attn import (HEAD_DIMS, MAX_LEVELS, MAX_POINTS, ms_deform_attn_bwd,  # noqa: F401
+                          ms_deform_attn_bwd_plain, ms_deform_attn_fwd, ms_deform_attn_fwd_plain,
+                          ms_deform_attn_op)
 from .hungarian import MAX_Q, hungarian_lap  # noqa: F401
 from .scatter_rows import (TILE_WIDTHS, rows_scatter_add, rows_scatter_add_bf16_plain,  # noqa: F401
                            rows_scatter_add_mxu, rows_scatter_add_plain, rows_scatter_add_tiled)
 
-WRAPPERS = (ms_deform_attn_fwd, rows_scatter_add, rows_scatter_add_mxu, rows_scatter_add_tiled,
-            hungarian_lap)
+WRAPPERS = (ms_deform_attn_fwd, ms_deform_attn_bwd, rows_scatter_add, rows_scatter_add_mxu,
+            rows_scatter_add_tiled, hungarian_lap)
 
 
 def reset_launch_counts() -> None:
@@ -27,7 +28,8 @@ def check_kernel_limits(model) -> None:
     past ``decoder.eval_idx``) is outside what the sampling kernel and the
     value-gradient scatters take, more than ``MAX_POINTS`` sampling points
     over the levels (``decoder.num_points``), or more than ``MAX_LEVELS``
-    levels (``decoder.num_levels``). Every layer is read, the wide ones that
+    levels (``decoder.num_levels``): the deformable-attention backward
+    kernel takes the sampling kernel's limits. Every layer is read, the wide ones that
     only training runs too. Called where a model reaches a CUDA device, so
     that such a model fails there and not at its first forward."""
     dec = model.decoder

@@ -20,7 +20,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("ms_deform_attn_fwd", "rows_scatter_add_tile", "hungarian_lap")
+SOURCES = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "rows_scatter_add_tile", "hungarian_lap")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _locks = {name: threading.Lock() for name in SOURCES}

@@ -103,18 +103,23 @@ ENTRY_POINTS = tuple(f"dfine_tpu_torch.{m}" for m in (
 # data parallelism and the flat optimizer: torch and the standard library only
 PARALLEL = ("dfine_tpu_torch.parallel", "dfine_tpu_torch.parallel.dp",
             "dfine_tpu_torch.train.flat_optim")
+# the kernels' wrappers and _build.py (the deformable-attention forward and
+# backward, the scatters, the solver) and the deform core: the same rule
+KERNELS = ("dfine_tpu_torch.ops.deform_attn", "dfine_tpu_torch.ops.kernels",
+           "dfine_tpu_torch.ops.kernels._build", "dfine_tpu_torch.ops.kernels.deform_attn",
+           "dfine_tpu_torch.ops.kernels.scatter_rows", "dfine_tpu_torch.ops.kernels.hungarian")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (every entry point of
-    ENTRY_POINTS and the modules of PARALLEL included) loads nothing of
-    FORBIDDEN and nothing of LAZY."""
+    ENTRY_POINTS and the modules of PARALLEL and KERNELS included) loads
+    nothing of FORBIDDEN and nothing of LAZY."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dfine_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(dfine_tpu_torch.__path__, "
         "'dfine_tpu_torch.')]\n"
-        f"missing = set({ENTRY_POINTS + PARALLEL!r}) - set(names)\n"
+        f"missing = set({ENTRY_POINTS + PARALLEL + KERNELS!r}) - set(names)\n"
         "assert not missing, missing\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -144,7 +149,7 @@ def test_port_sources_name_no_forbidden_import():
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
     stdlib = set(sys.stdlib_module_names)
-    for name in PARALLEL:
+    for name in PARALLEL + KERNELS:
         path = REPO / Path(*name.split(".")).with_suffix(".py")
         if not path.exists():
             path = path.with_suffix("") / "__init__.py"

@@ -206,17 +206,20 @@ def test_core_backward_matches_autograd_of_plain(cuda):
     """MSDeformAttnCore.backward (closed form + scatter kernel) against
     autograd of the plain core; tolerance of test_pallas_scatter.py:69-78."""
     from dfine_tpu_torch.ops.deform_attn import ms_deform_attn, ms_deform_attn_core
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
     from dfine_tpu_torch.ops.kernels.scatter_rows import rows_scatter_add
 
     value, loc, att = _inputs(cuda, 2, 300, 8, 32, M_SHAPES, M_POINTS, torch.float32)
     g_out = torch.randn((2, 300, 256), device=cuda)
     grads = []
-    before = rows_scatter_add.launches
+    before = rows_scatter_add.launches, ms_deform_attn_bwd.launches
     for fn in (ms_deform_attn, ms_deform_attn_core):
         v, l, a = (t.clone().requires_grad_() for t in (value, loc, att))
         (fn(v, M_SHAPES, l, a, M_POINTS) * g_out).sum().backward()
         grads.append((v.grad, l.grad, a.grad))
-    assert rows_scatter_add.launches == before + len(M_SHAPES)  # one per level
+    # one backward kernel a call, one scatter per level
+    assert (rows_scatter_add.launches, ms_deform_attn_bwd.launches) == \
+        (before[0] + len(M_SHAPES), before[1] + 1)
     for name, ours, ref in zip(("value", "loc", "att"), *grads):
         scale = ref.abs().max().item() + 1e-9
         assert (ours - ref).abs().max().item() <= 2e-4 * scale, name
@@ -516,8 +519,8 @@ def test_dp_step_two_ranks_sharing_the_card(cuda, tmp_path):
     batch): loss rtol 1e-5, grad norm rtol 1e-4, every parameter element
     within 2 lr + 2e-6 and at most 0.5 % beyond rtol 1e-4 / atol 1e-5
     (tests/test_torch_port_dp.py's rules); both ranks bit-equal; each rank
-    launched the sampling kernel 3 times, the scatter 6 times and the
-    Hungarian solver once."""
+    launched the sampling kernel 3 times, the backward kernel 3 times, the
+    scatter 6 times and the Hungarian solver once."""
     import socket
     import subprocess
     import sys
@@ -563,9 +566,9 @@ def test_dp_step_two_ranks_sharing_the_card(cuda, tmp_path):
     ref = {k: v.cpu() for k, v in state.model.state_dict().items()}
     for r in ranks:
         assert r["backend"] == "gloo"
-        assert r["counts"] == {"ms_deform_attn_fwd": 3, "rows_scatter_add": 6,
-                               "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0,
-                               "hungarian_lap": 1}
+        assert r["counts"] == {"ms_deform_attn_fwd": 3, "ms_deform_attn_bwd": 3,
+                               "rows_scatter_add": 6, "rows_scatter_add_mxu": 0,
+                               "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
         np.testing.assert_allclose(r["metrics"]["loss"], float(m["loss"]), rtol=1e-5)
         np.testing.assert_allclose(r["metrics"]["grad_norm"], float(m["grad_norm"]), rtol=1e-4)
         far, n_el = 0, 0
@@ -688,3 +691,245 @@ def test_hungarian_kernel_in_a_cuda_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, hungarian_lap(cost, valid))
+
+
+# ------------------------------------- the deformable-attention backward --
+
+BWD_GRAD_REL = 2e-4  # chip_smoke.GRAD_REL_TOL: g.v summed over d in another order
+
+
+def _g_out(dev, b, q, d, seed=0):
+    rng = np.random.default_rng(seed + 100)
+    return torch.from_numpy(rng.normal(size=(b, q, 8 * d)).astype(np.float32)).to(dev)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _bwd_against_plain(value, shapes, loc, att, g_out, pts, payload, need_value=True):
+    """One launch of the backward kernel against its plain version on the
+    same tensors: idx equal, contrib bit-equal (each level's block
+    contiguous, in the payload's type), grad_att and grad_loc within
+    BWD_GRAD_REL of their largest value. Returns the kernel's tuple."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd, ms_deform_attn_bwd_plain
+
+    before = ms_deform_attn_bwd.launches
+    ours = ms_deform_attn_bwd(value, shapes, loc, att, g_out, pts, payload, need_value)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_bwd.launches == before + 1
+    ref = ms_deform_attn_bwd_plain(value, shapes, loc, att, g_out, pts, payload, need_value)
+    for name, got, want in zip(("grad_att", "grad_loc"), ours[:2], ref[:2]):
+        assert got.shape == want.shape and got.dtype == torch.float32, name
+        assert (got - want).abs().max().item() <= BWD_GRAD_REL * want.abs().max().item(), name
+    if not need_value:
+        assert ours[2] is None and ours[3] is None
+        return ours
+    assert len(ours[2]) == len(ours[3]) == len(shapes)
+    for level, (i, c, ri, rc) in enumerate(zip(ours[2], ours[3], ref[2], ref[3])):
+        assert i.is_contiguous() and c.is_contiguous() and c.dtype == payload, level
+        assert i.shape == ri.shape and c.shape == rc.shape, level
+        assert torch.equal(i, ri), f"idx of level {level}"
+        assert torch.equal(_bits(c), _bits(rc)), f"contrib of level {level}"
+    return ours
+
+
+PAYLOADS = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,shapes,pts", [(32, M_SHAPES, M_POINTS), (16, N_SHAPES, N_POINTS),
+                                          (64, M_SHAPES, M_POINTS)])
+def test_deform_bwd_kernel_matches_plain(cuda, d, shapes, pts, value_dtype, payload):
+    """m@640 (and n@640 at D = 16), B = 2, 300 queries, locations in
+    [-0.15, 1.15]: idx equal, contrib bit-equal, gradients within 2e-4 of
+    the largest (the plain version reads the bf16 value as f32 too)."""
+    value, loc, att = _inputs(cuda, 2, 300, 8, d, shapes, pts, value_dtype)
+    _bwd_against_plain(value, shapes, loc, att, _g_out(cuda, 2, 300, d), pts, payload)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DEFORM_CASES)
+def test_deform_bwd_kernel_on_cases(cuda, case, value_dtype, payload):
+    """The CPU parity test's cases (pixel edges and centres, one level, head
+    dim 16, head dim 64, four levels, off the map): the same rules."""
+    value, shapes, loc, att, pts = deform_case(case)
+    value = torch.from_numpy(value).to(cuda, value_dtype)
+    loc, att = torch.from_numpy(loc).to(cuda), torch.from_numpy(att).to(cuda)
+    g_out = _g_out(cuda, value.shape[0], loc.shape[1], value.shape[3])
+    _bwd_against_plain(value, shapes, loc, att, g_out, pts, payload)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_deform_bwd_kernel_off_the_map(cuda, d):
+    """Every location off the map (-0.6, 1.7, +-1e9 on each axis): every idx
+    -1, both gradients exactly 0, contrib bit-equal to the plain version's
+    (zeros); and the location past every edge by one pixel's half on one
+    level (corners just outside): the plain version's idx, bit for bit."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, d, M_SHAPES, M_POINTS, torch.bfloat16)
+    far = torch.tensor([-0.6, 1.7, -1e9, 1e9], device=cuda)
+    loc = far[torch.randint(0, 4, loc.shape, device=cuda)]
+    g_out = _g_out(cuda, 2, 300, d)
+    ga, gl, idx, _ = _bwd_against_plain(value, M_SHAPES, loc, att, g_out, M_POINTS,
+                                        torch.float32)
+    assert all((i == -1).all().item() for i in idx)
+    assert torch.count_nonzero(ga).item() == 0 and torch.count_nonzero(gl).item() == 0
+    edges = torch.tensor([-0.5 / 80, 1 + 0.5 / 80, 0.0, 1.0], device=cuda)
+    loc = edges[torch.randint(0, 4, loc.shape, device=cuda)]
+    _bwd_against_plain(value, M_SHAPES, loc, att, g_out, M_POINTS, torch.bfloat16)
+    assert ms_deform_attn_bwd(value, M_SHAPES, loc, att, g_out, M_POINTS)[2][0].min().item() == -1
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_deform_bwd_kernel_without_the_value_gradient(cuda, d):
+    """need_value False: no idx or contrib, and both gradients bit-equal to
+    those of the call that writes them."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, d, M_SHAPES, M_POINTS, torch.bfloat16, seed=3)
+    g_out = _g_out(cuda, 2, 300, d, seed=3)
+    ga, gl, _, _ = _bwd_against_plain(value, M_SHAPES, loc, att, g_out, M_POINTS,
+                                      torch.float32, need_value=False)
+    full = ms_deform_attn_bwd(value, M_SHAPES, loc, att, g_out, M_POINTS)
+    assert torch.equal(ga, full[0]) and torch.equal(gl, full[1])
+
+
+def test_deform_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
+
+    value, loc, att = _inputs(cuda, 1, 10, 8, 32, M_SHAPES, M_POINTS, torch.float32)
+    g_out = _g_out(cuda, 1, 10, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        ms_deform_attn_bwd(value[..., :8].contiguous(), M_SHAPES, loc, att, g_out[..., :64],
+                           M_POINTS)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms_deform_attn_bwd(value, M_SHAPES, loc, att, _g_out(cuda, 1, 10, 64)[..., ::2],
+                           M_POINTS)
+    with pytest.raises(TypeError, match="f32"):
+        ms_deform_attn_bwd(value, M_SHAPES, loc, att, g_out.bfloat16(), M_POINTS)
+    with pytest.raises(TypeError, match="payload"):
+        ms_deform_attn_bwd(value, M_SHAPES, loc, att, g_out, M_POINTS, torch.float16)
+    pts = (3, 6, 8)  # 17 points
+    v, l, a = _inputs(cuda, 1, 10, 8, 32, M_SHAPES, pts, torch.float32)
+    with pytest.raises(ValueError, match="at most 16 points"):
+        ms_deform_attn_bwd(v, M_SHAPES, l, a, g_out, pts)
+
+
+def test_deform_bwd_kernel_is_one_graph_node_and_replays(cuda):
+    """One call is the kernel alone: one node in a CUDA graph of the call
+    (no fill before it); the call captured in a graph and replayed on new
+    inputs copied into the static ones gives the eager call's outputs bit
+    for bit (the kernel has no atomics)."""
+    import sys
+    from pathlib import Path
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, 32, M_SHAPES, M_POINTS, torch.bfloat16, seed=1)
+    g_out = _g_out(cuda, 2, 300, 32, seed=1)
+    for payload in PAYLOADS:
+        nodes = chip_smoke.graph_nodes(
+            lambda: ms_deform_attn_bwd(value, M_SHAPES, loc, att, g_out, M_POINTS, payload))
+        assert len(nodes) == 1 and "ms_deform_attn_bwd" in nodes[0][1], nodes
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ms_deform_attn_bwd(value, M_SHAPES, loc, att, g_out, M_POINTS, torch.bfloat16)
+    v2, l2, a2 = _inputs(cuda, 2, 300, 8, 32, M_SHAPES, M_POINTS, torch.bfloat16, seed=2)
+    for static, new in ((value, v2), (loc, l2), (att, a2), (g_out, _g_out(cuda, 2, 300, 32, 2))):
+        static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = ms_deform_attn_bwd(v2, M_SHAPES, l2, a2, g_out, M_POINTS, torch.bfloat16)
+    assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+    assert all(torch.equal(a, b) for a, b in zip(out[2], eager[2]))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out[3], eager[3]))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("impl", ["pallas", "mxu", "tiled"])
+def test_core_backward_through_the_bwd_kernel(cuda, impl, d):
+    """MSDeformAttnCore's whole backward (the backward kernel, then the
+    chosen scatter a level) against autograd of the plain core, with a
+    non-contiguous incoming gradient (the output used transposed):
+    location and attention gradients within 2e-4 of the largest; value
+    gradients within 2e-4 of the largest for the f32 payload and within
+    rtol 5e-2, atol 2e-2 for the bf16 ones (test_pallas_scatter.py:139-141);
+    one backward kernel and one scatter a level a call. Then the value
+    frozen: one backward kernel, no scatter, and the other two gradients
+    bit-equal to the first call's."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
+
+    value, loc, att = _inputs(cuda, 2, 300, 8, d, M_SHAPES, M_POINTS, torch.float32, seed=4)
+    g_t = _g_out(cuda, 2, 300, d, seed=4).transpose(0, 1)  # [Q, B, H*D]
+    kernel = tda._SCATTERS[impl]
+    grads = []
+    tda.set_deform_bwd(impl)
+    try:
+        before = kernel.launches, ms_deform_attn_bwd.launches
+        for fn in (tda.ms_deform_attn, tda.ms_deform_attn_core):
+            v, l, a = (t.clone().requires_grad_() for t in (value, loc, att))
+            (fn(v, M_SHAPES, l, a, M_POINTS).transpose(0, 1) * g_t).sum().backward()
+            grads.append((v.grad, l.grad, a.grad))
+        assert (kernel.launches, ms_deform_attn_bwd.launches) == \
+            (before[0] + len(M_SHAPES), before[1] + 1)
+        l, a = (t.clone().requires_grad_() for t in (loc, att))
+        (tda.ms_deform_attn(value, M_SHAPES, l, a, M_POINTS).transpose(0, 1) * g_t).sum().backward()
+        assert (kernel.launches, ms_deform_attn_bwd.launches) == \
+            (before[0] + len(M_SHAPES), before[1] + 2)
+    finally:
+        tda.set_deform_bwd("pallas")
+    (gv, gl, ga), (rv, rl, ra) = grads
+    if impl == "pallas":
+        assert (gv - rv).abs().max().item() <= 2e-4 * rv.abs().max().item()
+    else:
+        torch.testing.assert_close(gv, rv, rtol=5e-2, atol=2e-2)
+    for ours, ref in ((gl, rl), (ga, ra)):
+        assert (ours - ref).abs().max().item() <= 2e-4 * ref.abs().max().item()
+    assert torch.equal(l.grad, gl) and torch.equal(a.grad, ga)
+
+
+def test_core_backward_in_a_cuda_graph(cuda):
+    """A forward and backward of MSDeformAttnCore (the tiled scatter:
+    deterministic) captured in one CUDA graph after a warm-up on a side
+    stream, replayed on new inputs: every gradient bit-equal to an eager
+    pass on those inputs."""
+    from dfine_tpu_torch.ops import deform_attn as tda
+
+    def inputs(seed):
+        value, loc, att = _inputs(cuda, 2, 300, 8, 32, M_SHAPES, M_POINTS, torch.bfloat16,
+                                  seed=seed)
+        return value, loc, att, _g_out(cuda, 2, 300, 32, seed)
+
+    def grads(value, loc, att, g_out):
+        v, l, a = (t.detach().requires_grad_() for t in (value, loc, att))
+        out = tda.ms_deform_attn(v, M_SHAPES, l, a, M_POINTS)
+        return torch.autograd.grad(out, (v, l, a), g_out)
+
+    static = inputs(5)
+    tda.set_deform_bwd("tiled")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            grads(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = grads(*static)
+        new = inputs(6)
+        for s_, n_ in zip(static, new):
+            s_.copy_(n_)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = grads(*new)
+    finally:
+        tda.set_deform_bwd("pallas")
+    assert all(torch.equal(o, e) for o, e in zip(out, eager))

@@ -17,14 +17,18 @@ f32, att [B, Q, 8, P] f32 softmaxed, num_points), from a seed:
   ``eval_idx`` at ``layer_scale`` 2) with points (3, 6, 3) on three levels,
   locations on pixel edges and centres as in ``pixel_edges``;
 - ``four_levels``: points (3, 6, 3, 3) on four levels, the last one
-  extra-level-sized (2 x 2), head dim 32.
+  extra-level-sized (2 x 2), head dim 32;
+- ``off_the_map``: ``pixel_edges``' levels with every location off the map
+  on one axis, drawn at random (-0.6, 1.7 or +-1e9 there): every corner
+  outside, so the output and every gradient are 0.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-DEFORM_CASES = ("pixel_edges", "one_level", "n_points", "head_dim_64", "four_levels")
+DEFORM_CASES = ("pixel_edges", "one_level", "n_points", "head_dim_64", "four_levels",
+                "off_the_map")
 HEADS = 8
 
 
@@ -35,7 +39,7 @@ def _softmax(x):
 
 def deform_case(name: str, b: int = 2, q: int = 17, seed: int = 0):
     rng = np.random.default_rng(seed)
-    if name == "pixel_edges":
+    if name in ("pixel_edges", "off_the_map"):
         d, shapes, pts = 32, ((12, 10), (6, 5), (3, 3)), (3, 6, 3)
     elif name == "one_level":
         d, shapes, pts = 32, ((9, 13),), (4,)
@@ -58,5 +62,11 @@ def deform_case(name: str, b: int = 2, q: int = 17, seed: int = 0):
                                        (np.arange(size) + 0.5) / size]).astype(np.float32)
                 loc[:, :, :, start:start + n, axis] = rng.choice(grid, (b, q, HEADS, n))
             start += n
+    if name == "off_the_map":
+        far = np.asarray([-0.6, 1.7, -1e9, 1e9], np.float32)
+        axis = rng.integers(0, 2, loc.shape[:-1])
+        off = far[rng.integers(0, 4, loc.shape[:-1])]
+        for k in (0, 1):
+            loc[..., k] = np.where(axis == k, off, loc[..., k])
     att = _softmax(rng.normal(size=(b, q, HEADS, p)))
     return value, shapes, loc, att, pts

@@ -142,3 +142,78 @@ def test_threshold_drift_pairs_detections_by_box_near_the_threshold():
     same = chip_smoke.threshold_drift(ref, ref, conf, window)
     assert same["drift"] == 0.0 and same["crossings"] == same["unpaired"] == 0
     assert same["drift"] < same["margin"]
+
+
+def test_widened_threshold_takes_the_first_window_with_a_free_gap():
+    """Every gap of the first window (6-12 kept in the busiest frame) lies
+    inside a span, the second window's (3-12) has one outside them: that
+    window and its gap are taken; with the first window free it is taken
+    as it is; where no window has a free gap, the window with the fewest
+    spans over its threshold, the first of equal ones."""
+    scores = [np.asarray([0.95, 0.9, 0.85] + list(np.linspace(0.6, 0.4, 9)) + [0.1] * 4,
+                         np.float32)]
+    covering = [np.asarray([[0.05, 0.61]], np.float32)]  # over every 6-12 threshold
+    windows = ((6, 12), (3, 12), (1, 16))
+    with_spans = chip_smoke.keep_threshold(scores, 12, covering, low=6)
+    assert with_spans[4] == 1
+    (thr, gap, below, above, straddled), window = chip_smoke.widened_threshold(
+        scores, covering, windows)
+    assert window == (3, 12) and straddled == 0
+    assert (below, above) == pytest.approx((0.61, 0.85))
+    assert thr == pytest.approx(0.73) and gap == pytest.approx(0.24)
+    got, window = chip_smoke.widened_threshold(scores, (), windows)
+    assert window == (6, 12) and got == chip_smoke.keep_threshold(scores, 12, low=6)
+    everywhere = [np.asarray([[0.0, 1.0]], np.float32)]
+    got, window = chip_smoke.widened_threshold(scores, everywhere, windows)
+    assert window == (6, 12) and got[4] == 1
+    with pytest.raises(ValueError, match="no keep window"):
+        chip_smoke.widened_threshold([np.zeros(0, np.float32)], (), windows)
+
+
+def test_straddling_pairs_and_either_way_answers():
+    """``straddling`` keeps, a frame, the box pairs whose two scores lie on
+    two sides of conf and their lowest score; ``EitherWay`` serves each
+    frame at conf with those detections all kept (served at that lowest
+    score) or all dropped, the other detections by their own score, every
+    per-detection entry filtered alike."""
+    conf = 0.5
+    box = np.arange(4, dtype=np.float64)
+    eager = [(np.stack([box, box + 10, box + 20]), np.asarray([0.52, 0.7, 0.3], np.float32)),
+             (np.stack([box + 30]), np.asarray([0.6], np.float32))]
+    pt2 = [(np.stack([box + 20, box + 10, box]), np.asarray([0.31, 0.71, 0.49], np.float32)),
+           (np.stack([box + 30]), np.asarray([0.61], np.float32))]
+    straddle = chip_smoke.straddling(eager, pt2, conf)
+    np.testing.assert_array_equal(straddle[0][0], box[None])
+    np.testing.assert_array_equal(straddle[0][1], box[None])
+    assert straddle[0][2] == pytest.approx(0.49)
+    assert len(straddle[1][0]) == 0 and straddle[1][2] is None
+
+    class Served:  # a backend answering each frame by its conf_thresh
+        conf_thresh = 0.0
+
+        def __init__(self, frames):
+            self.frames, self.calls, self.i = frames, [], 0
+
+        def __call__(self, img):
+            boxes, scores = self.frames[self.i]
+            self.i += 1
+            self.calls.append(self.conf_thresh)
+            keep = scores >= self.conf_thresh
+            return [{"boxes": boxes[keep], "scores": scores[keep],
+                     "labels": np.arange(len(scores))[keep],
+                     "masks": np.ones((len(scores), 2, 2), np.uint8)[keep],
+                     "all_scores": scores}]
+
+    for kept in (True, False):
+        model = Served(pt2)
+        way = chip_smoke.EitherWay(model, straddle, 1, conf, kept)
+        first, second = way(None)[0], way(None)[0]
+        assert model.calls == ([pytest.approx(0.49), conf] if kept else [conf, conf])
+        want = [0.71, 0.49] if kept else [0.71]
+        np.testing.assert_allclose(first["scores"], want, rtol=1e-6)
+        assert len(first["boxes"]) == len(first["labels"]) == len(first["masks"]) == len(want)
+        assert len(first["all_scores"]) == 3
+        np.testing.assert_allclose(second["scores"], [0.61], rtol=1e-6)
+    model = Served(eager)
+    way = chip_smoke.EitherWay(model, straddle, 0, conf, False)
+    np.testing.assert_allclose(way(None)[0]["scores"], [0.7], rtol=1e-6)
