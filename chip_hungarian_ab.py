@@ -28,21 +28,13 @@ import chip_smoke as cs
 
 
 def earlier_solver(path: str):
-    """The solver built from ``path`` into the build directory: a call
+    """The solver built from ``path`` (``chip_smoke.build_source``): a call
     ``solve(costs [S, B, G, Q], valid [B, G]) -> [S, B, G] int32``, with the
     build's ptxas lines as ``solve.ptxas``."""
     import torch
 
-    from dfine_tpu_torch.ops.kernels import _build
-
-    lib = _build.BUILD_DIR / "earlier" / "libhungarian_lap_earlier.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-                           "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-                           "-o", str(lib), path], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stderr}")
-    fn = ctypes.CDLL(str(lib)).hungarian_lap
+    lib, ptxas = cs.build_source(path, "hungarian_lap_earlier")
+    fn = lib.hungarian_lap
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -54,7 +46,7 @@ def earlier_solver(path: str):
               torch.cuda.current_stream().cuda_stream):
             raise RuntimeError(f"the solver of {path}: launch failed")
         return out
-    solve.ptxas = cs.ptxas_by_kernel(proc.stdout + proc.stderr)
+    solve.ptxas = ptxas
     return solve
 
 

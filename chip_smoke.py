@@ -10,6 +10,8 @@ Phases, each printed as one JSON line:
 1. build: every hand-written kernel from ``dfine_tpu_torch/csrc`` (one nvcc
    per source, started together), with each kernel's registers and spills
    and the atomic opcodes in its SASS (none in the tensor-core scatter);
+   no instance of the deformable-attention backward kernel may have a
+   stack frame or spill;
 2. kernels: each kernel against its plain PyTorch version on the card at the
    shapes of D-FINE-m at 640 px (TF32 off), with its time, the plain
    version's, one PyTorch call's where one computes the same function, and
@@ -342,7 +344,9 @@ SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
 # keeps APPS_KEEP // 2 to APPS_KEEP in the busiest frame, outside the spans
 # of the detections' eager and .pt2 scores; where that window has no such
 # gap, the next of APPS_KEEP_WINDOWS that has one); infer over the
-# APPS_INFER_FRAMES val frames with the most of them; test_batching's sweep
+# APPS_INFER_FRAMES val frames with the most of the eager backend's own
+# detections at a threshold in its scores' widest gap that keeps 1 to
+# APPS_KEEP in the busiest frame (infer_threshold); test_batching's sweep
 # over APPS_BATCH_IMAGES images a batch size, up to APPS_MAX_BATCH. The .pt2
 # is the deploy-fused model in bf16: its bench row must keep
 # APPS_EXPORT_F1_SHARE of eager's F1 (the runs on the mask-polygon labels
@@ -585,6 +589,53 @@ def ptxas_by_kernel(log: str) -> dict:
     return {k: "; ".join(v) for k, v in out.items()}
 
 
+def build_source(path, name: str):
+    """An earlier source of a kernel (a CUDA file with a plain C interface),
+    built as the port's kernels are built into ``_build/earlier/lib<name>.so``,
+    for timing it beside the port's: (the loaded library, nvcc's ptxas
+    lines by kernel)."""
+    import ctypes
+    from pathlib import Path
+
+    from dfine_tpu_torch.ops.kernels import _build
+
+    lib = _build.BUILD_DIR / "earlier" / f"lib{name}.so"
+    log = _build.compile_source(Path(path), lib)
+    return ctypes.CDLL(str(lib)), ptxas_by_kernel(log)
+
+
+def ptxas_numbers(line: str) -> dict:
+    """Registers, stack frame and spill bytes from one kernel's ptxas lines
+    (``ptxas_by_kernel``'s value); None where a number is missing."""
+    def num(pattern):
+        m = re.search(pattern, line)
+        return int(m.group(1)) if m else None
+
+    return {"registers": num(r"Used (\d+) registers"),
+            "stack_frame_bytes": num(r"(\d+) bytes stack frame"),
+            "spill_store_bytes": num(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": num(r"(\d+) bytes spill loads")}
+
+
+# the backward kernel's instances (value bf16/f32 x payload bf16/f32 x D 16/32/64),
+# and the one the default train step launches: bf16 value, f32 payload, D = 32
+BWD_INSTANCES = 12
+BWD_MAIN_INSTANCE = "ms_deform_attn_bwd_kernelI13__nv_bfloat16fLi32E"
+
+
+def bwd_build(ptxas: dict) -> dict:
+    """The backward kernel's build from its library's ptxas lines: every
+    ``ms_deform_attn_bwd_kernel`` instance's numbers, the main instance's,
+    and ``clean``: all BWD_INSTANCES found, none with a stack frame or a
+    spill (the level table and the pair arrays must stay in registers)."""
+    inst = {k: ptxas_numbers(v) for k, v in ptxas.items() if "ms_deform_attn_bwd_kernel" in k}
+    main = [v for k, v in inst.items() if BWD_MAIN_INSTANCE in k]
+    clean = len(inst) == BWD_INSTANCES and all(
+        v["stack_frame_bytes"] == 0 and v["spill_store_bytes"] == 0
+        and v["spill_load_bytes"] == 0 for v in inst.values())
+    return {"instances": len(inst), "clean": clean, "main": main[0] if len(main) == 1 else None}
+
+
 def phase_build(res):
     from dfine_tpu_torch.ops.kernels import _build
 
@@ -593,8 +644,11 @@ def phase_build(res):
         list(pool.map(_build.load, _build.SOURCES))
     ptxas = {n: ptxas_by_kernel(log) for n, log in _build.build_logs.items()}
     atomics = sass_atomics()
+    bwd = bwd_build(ptxas["ms_deform_attn_bwd"]) if "ms_deform_attn_bwd" in ptxas else None
+    res["bwd_build"] = bwd
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(_build.build_logs), "ptxas": ptxas, "sass_atomics": atomics})
+          "built": sorted(_build.build_logs), "ptxas": ptxas, "sass_atomics": atomics,
+          "ms_deform_attn_bwd": bwd})
     # the mma scatter sums on the tensor cores: no atomic in its own functions
     mma = {f: o for f, o in atomics["rows_scatter_add_tile"].items()
            if "rows_scatter_add_mma_kernel" in f}
@@ -607,6 +661,10 @@ def phase_build(res):
     if "hungarian_lap" in ptxas and (len(lap) != 3 or any(
             "0 bytes spill stores, 0 bytes spill loads" not in v for v in lap.values())):
         raise AssertionError(f"hungarian_lap_kernel instances (3 wanted, none spilling): {lap}")
+    # the backward kernel: no instance may have a stack frame or spill
+    if bwd is not None and not bwd["clean"]:
+        raise AssertionError(f"ms_deform_attn_bwd_kernel instances ({BWD_INSTANCES} wanted, no "
+                             f"stack frame, no spill): {ptxas['ms_deform_attn_bwd']}")
 
 
 def sass_atomics() -> dict:
@@ -1058,35 +1116,50 @@ def phase_core_backward(res):
           "tol_rel": GRAD_REL_TOL, "launches": counts})
 
 
-def _bwd_against_plain(v, l, a, g, payload, shapes=M_SHAPES, pts=M_POINTS,
-                       need_value=True) -> dict:
-    """One call of the backward kernel against its plain version on the same
-    tensors: raise unless idx is equal, contrib bit-equal (each level's
-    block contiguous) and grad_att and grad_loc within GRAD_REL_TOL of their
-    largest value. Returns the largest absolute and relative errors."""
+def bwd_compared(ours, ref) -> dict:
+    """Two outputs of the backward (grad_att, grad_loc, idx levels, contrib
+    levels): the gradients' largest gaps, absolute and relative to the
+    largest value of ``ref``; idx equal and contrib bit-equal (each level's
+    block contiguous, compared through an integer view), or, where ``ref``
+    has no value streams, ``ours`` has none either."""
     import torch
 
-    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd, ms_deform_attn_bwd_plain
-
-    ours = ms_deform_attn_bwd(v, shapes, l, a, g, pts, payload, need_value)
-    ref = ms_deform_attn_bwd_plain(v, shapes, l, a, g, pts, payload, need_value)
     out = {}
     for name, x, y in zip(("grad_att", "grad_loc"), ours[:2], ref[:2]):
         err = (x - y).abs().max().item()
         out[f"{name}_max_abs_err"] = err
         out[f"{name}_max_rel_err"] = err / max(y.abs().max().item(), 1e-30)
     out["max_abs_err"] = max(out["grad_att_max_abs_err"], out["grad_loc_max_abs_err"])
-    if need_value:
-        bits = torch.int16 if payload == torch.bfloat16 else torch.int32
-        out["idx_equal"] = all(torch.equal(x, y) for x, y in zip(ours[2], ref[2]))
-        out["contrib_bit_equal"] = all(
-            x.is_contiguous() and torch.equal(x.view(bits), y.view(bits))
-            for x, y in zip(ours[3], ref[3]))
-        out["entries"] = sum(x.numel() for x in ours[2])
-    else:
+    if ref[2] is None:
         out["idx_equal"] = out["contrib_bit_equal"] = ours[2] is None and ours[3] is None
-    if not (out["grad_att_max_rel_err"] <= GRAD_REL_TOL and out["grad_loc_max_rel_err"]
-            <= GRAD_REL_TOL and out["idx_equal"] and out["contrib_bit_equal"]):
+        return out
+    bits = torch.int16 if ref[3][0].dtype == torch.bfloat16 else torch.int32
+    out["idx_equal"] = all(torch.equal(x, y) for x, y in zip(ours[2], ref[2]))
+    out["contrib_bit_equal"] = all(
+        x.is_contiguous() and torch.equal(x.view(bits), y.view(bits))
+        for x, y in zip(ours[3], ref[3]))
+    out["entries"] = sum(x.numel() for x in ours[2])
+    return out
+
+
+def bwd_equal(check: dict) -> bool:
+    """The verdict on ``bwd_compared``: idx equal, contrib bit-equal, and
+    both gradients within GRAD_REL_TOL of their largest value."""
+    return bool(check["idx_equal"] and check["contrib_bit_equal"]
+                and check["grad_att_max_rel_err"] <= GRAD_REL_TOL
+                and check["grad_loc_max_rel_err"] <= GRAD_REL_TOL)
+
+
+def _bwd_against_plain(v, l, a, g, payload, shapes=M_SHAPES, pts=M_POINTS,
+                       need_value=True) -> dict:
+    """One call of the backward kernel against its plain version on the same
+    tensors (``bwd_compared``): raise unless ``bwd_equal``. Returns the
+    comparison."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd, ms_deform_attn_bwd_plain
+
+    out = bwd_compared(ms_deform_attn_bwd(v, shapes, l, a, g, pts, payload, need_value),
+                       ms_deform_attn_bwd_plain(v, shapes, l, a, g, pts, payload, need_value))
+    if not bwd_equal(out):
         raise AssertionError(f"ms_deform_attn_bwd against its plain version: {out}")
     return out
 
@@ -1153,6 +1226,7 @@ def phase_core_bwd_kernel(res):
                          "graph_nodes_per_call": len(nodes),
                          "plain_graph_nodes_per_call": len(graph_nodes(plain)),
                          "bound_ms": bound_ms, "bound_by": bound_by}
+            runs[key]["share_of_bound"] = bound_ms / runs[key]["ms"]
             emit({"phase": "kernel_ms_deform_attn_bwd",
                   "shape": f"m@640 B={GRAD_BATCH} Q={QUERIES} D={d} bf16 value, "
                            f"{str(payload).split('.')[1]} payload", **runs[key]})
@@ -3947,6 +4021,19 @@ def widened_threshold(scores, spans, windows):
     return best
 
 
+def infer_threshold(scores, frames: int):
+    """``apps.infer``'s threshold and source frames from the scores, one
+    array a frame, that the backend it builds (eager ``TorchModel``, bf16)
+    served on the val frames: ``keep_threshold``'s threshold keeping 1 to
+    APPS_KEEP in the busiest frame, and the ``frames`` frames with the most
+    detections at it (the first of equal ones). Returns (threshold, frame
+    indices, detections a chosen frame at the threshold)."""
+    conf = keep_threshold(scores, APPS_KEEP, low=1)[0]
+    at = [int((np.asarray(f, np.float32) >= conf).sum()) for f in scores]
+    chosen = sorted(range(len(at)), key=lambda i: -at[i])[:frames]
+    return conf, chosen, [at[i] for i in chosen]
+
+
 def straddling(ref, ours, conf: float):
     """One (ref boxes [K, 4], our boxes [K, 4], lowest score) a frame of the
     detections that two backends' (boxes [N, 4], scores [N]) of the same
@@ -4221,11 +4308,16 @@ def phase_apps(res):
             ref_scores, spans, APPS_KEEP_WINDOWS)
         kept = relabel_val(tr, decoded, conf)
         tr.conf_thresh = conf
-        # infer's source: the val frames with the most detections at conf
+        # infer's source and threshold: from the eager backend's own scores,
+        # the model infer serves, not from the fp32 ones under conf (on an
+        # H100 every bf16 score of the frames kept most at conf once fell
+        # under it, and infer wrote no crop)
+        infer_conf, infer_frames, infer_dets = infer_threshold(
+            [s for _, s in served["eager"]], APPS_INFER_FRAMES)
         test_dir = os.path.join(root, "data", "test")
         os.makedirs(test_dir)
-        for i in sorted(range(len(val_names)), key=lambda i: -kept[i])[:APPS_INFER_FRAMES]:
-            shutil.copy(os.path.join(ds, "images", val_names[i]), test_dir)
+        for i in infer_frames:
+            shutil.copy(bench_ds._paths(i)[0], test_dir)
         argv = base_argv + [f"train.conf_thresh={conf}"]
         emit({"phase": "apps", "step": "relabel", "conf_thresh": conf,
               "keep_window": window, "keep_windows": APPS_KEEP_WINDOWS,
@@ -4235,7 +4327,8 @@ def phase_apps(res):
               "labels_per_val_frame": kept, "train_frames": len(train_names)})
 
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", _INFER_RUN] + argv, capture_output=True,
+        proc = subprocess.run([sys.executable, "-c", _INFER_RUN] + base_argv
+                              + [f"train.conf_thresh={infer_conf}"], capture_output=True,
                               text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
         infer_s = time.perf_counter() - t0
         out_dir = os.path.join(root, "output", "infer")
@@ -4252,6 +4345,7 @@ def phase_apps(res):
               "labels_txt": open(os.path.join(out_dir, "labels.txt")).read().split()
               if proc.returncode == 0 else None,
               "launches": launches["infer"], "frames": APPS_INFER_FRAMES,
+              "conf_thresh": infer_conf, "eager_detections_a_frame": infer_dets,
               "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""})
         n = APPS_INFER_FRAMES
         if (proc.returncode != 0 or len(written["images"]) != n or len(written["annotations"]) != n
@@ -5069,6 +5163,7 @@ def d64_fields(r: dict, library: bool = True) -> dict:
 
 def kernel_line(res):
     d = res["deform"]
+    bwd_main = (res.get("bwd_build") or {}).get("main") or {}
     # (name, pallas_call line, launch counts, path, kernel symbol)
     scatters = (("rows_scatter_add", 85, "train_counts",
                  f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one backward)",
@@ -5146,14 +5241,18 @@ def kernel_line(res):
          "idx_equal": all(r["idx_equal"] for r in res["deform_bwd"].values()),
          "contrib_bit_equal": all(r["contrib_bit_equal"] for r in res["deform_bwd"].values()),
          **{k: res["deform_bwd"][f"d{HEAD_DIM}_float32_payload"][k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "activities_per_call",
+             "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "activities_per_call",
              "plain_activities_per_call", "graph_nodes_per_call", "plain_graph_nodes_per_call")},
          "library_ms": None,  # no single PyTorch call computes it
          "variants": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "max_abs_err")}
+                                            "share_of_bound", "max_abs_err")}
                       for k, r in res["deform_bwd"].items() if "frozen" not in k},
          "train_in_situ_ms": in_situ_ms(res, "ms_deform_attn_bwd_kernel"),
-         "train_step_turns": res["train_bwd_turns"]},
+         "train_step_turns": res["train_bwd_turns"],
+         # the main instance (bf16 value, f32 payload, D = 32) as ptxas built it
+         "registers": bwd_main.get("registers"),
+         "stack_frame_bytes": bwd_main.get("stack_frame_bytes"),
+         "instances_clean": (res.get("bwd_build") or {}).get("clean")},
         {"name": "hungarian_lap", "route": "cuda",
          "source": "dfine_tpu_torch/csrc/hungarian_lap.cu",
          "replaces": "dfine_tpu/ops/hungarian.py:48",  # XLA _solve_one: no Pallas counterpart

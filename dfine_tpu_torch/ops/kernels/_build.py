@@ -43,18 +43,23 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def _compile(name: str) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src, lib = _paths(name)
+def compile_source(src: Path, lib: Path) -> str:
+    """nvcc of one CUDA source with a plain C interface into the shared
+    library ``lib`` (sm_90a, ``-Xptxas -v``); returns nvcc's output."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
         [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}")
     os.replace(tmp, lib)
-    build_logs[name] = proc.stdout
+    return proc.stdout
+
+
+def _compile(name: str) -> None:
+    build_logs[name] = compile_source(*_paths(name))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -257,7 +257,8 @@ def ms_deform_attn_bwd(
     """``ms_deform_attn_bwd_plain``'s function in one launch for every
     level: value [B, S, nhead, d] (bf16 or f32, d in HEAD_DIMS), loc [B, Q,
     nhead, P, 2] f32, att [B, Q, nhead, P] f32, g_out [B, Q, nhead*d] f32,
-    all contiguous, P <= 16 over at most 4 levels; payload f32 or bf16.
+    all contiguous (value 16-byte and loc 8-byte aligned, as the forward
+    takes them), P <= 16 over at most 4 levels; payload f32 or bf16.
     Returns the same tuple: the levels' idx and contrib are views into one
     allocation each, each level's block contiguous. idx equals the plain
     version's and contrib is bit-equal to it (every rounding of the
@@ -294,6 +295,8 @@ def ms_deform_attn_bwd(
         raise ValueError("ms_deform_attn_bwd: spatial_shapes must cover the value rows")
     if not all(t.is_contiguous() for t in (value, loc, att, g_out)):
         raise ValueError("ms_deform_attn_bwd takes contiguous tensors")
+    if value.data_ptr() % 16 or loc.data_ptr() % 8:
+        raise ValueError("ms_deform_attn_bwd takes value 16-byte and loc 8-byte aligned")
     if any(t.device != value.device for t in (loc, att, g_out)):
         raise ValueError("ms_deform_attn_bwd: value, loc, att and g_out must be on one device")
     dev = value.device

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_deform_cases import DEFORM_CASES, deform_case
+from test_torch_port_deform_cases import DEFORM_CASES, TILING_CASES, deform_case, tiling_case
 from test_torch_port_hungarian_cases import (CASES, SIZE_CASES, assert_optimal, cap_rows,
                                              hungarian_case, integer_case, no_pending_case,
                                              size_case)
@@ -762,6 +762,54 @@ def test_deform_bwd_kernel_on_cases(cuda, case, value_dtype, payload):
     _bwd_against_plain(value, shapes, loc, att, g_out, pts, payload)
 
 
+def _tiling_inputs(dev, case, d, value_dtype, seed=0):
+    value, shapes, loc, att, pts = tiling_case(case, d, seed)
+    b, q, heads = loc.shape[:3]
+    g_out = np.random.default_rng(seed + 100).normal(size=(b, q, heads * d)).astype(np.float32)
+    return (torch.from_numpy(value).to(dev, value_dtype), shapes, torch.from_numpy(loc).to(dev),
+            torch.from_numpy(att).to(dev), torch.from_numpy(g_out).to(dev), pts)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("case", TILING_CASES)
+def test_deform_bwd_kernel_on_tiling_cases(cuda, case, d, value_dtype, payload):
+    """The edges of the kernel's work tiling (a warp a run of consecutive
+    (query, point) slots of one level, batch and head): 1, 7, 301 and 500
+    queries (the last run of a level cut short), B * H = 1, a level with
+    one point, 16 points over 4 levels; each at head dims 16, 32 and 64:
+    idx equal, contrib bit-equal, gradients within 2e-4 of the largest."""
+    value, shapes, loc, att, g_out, pts = _tiling_inputs(cuda, case, d, value_dtype)
+    _bwd_against_plain(value, shapes, loc, att, g_out, pts, payload)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("case", ["q7", "q301", "one_row"])
+def test_deform_bwd_kernel_tiling_graph_replays(cuda, case, d):
+    """A call on a ragged tiling case captured in a CUDA graph and replayed
+    on new inputs copied into the static ones: every output bit-equal to
+    the eager call's on those inputs, in both payloads."""
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd
+
+    for payload in PAYLOADS:
+        value, shapes, loc, att, g_out, pts = _tiling_inputs(cuda, case, d, torch.bfloat16)
+        ms_deform_attn_bwd(value, shapes, loc, att, g_out, pts, payload)  # built before capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ms_deform_attn_bwd(value, shapes, loc, att, g_out, pts, payload)
+        new = _tiling_inputs(cuda, case, d, torch.bfloat16, seed=1)
+        for static, fresh in zip((value, loc, att, g_out), (new[0], new[2], new[3], new[4])):
+            static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = ms_deform_attn_bwd(new[0], shapes, new[2], new[3], new[4], pts, payload)
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+        assert all(torch.equal(a, b) for a, b in zip(out[2], eager[2]))
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out[3], eager[3]))
+
+
 @pytest.mark.parametrize("d", [16, 32, 64])
 def test_deform_bwd_kernel_off_the_map(cuda, d):
     """Every location off the map (-0.6, 1.7, +-1e9 on each axis): every idx
@@ -817,6 +865,10 @@ def test_deform_bwd_kernel_refuses_what_it_does_not_take(cuda):
     v, l, a = _inputs(cuda, 1, 10, 8, 32, M_SHAPES, pts, torch.float32)
     with pytest.raises(ValueError, match="at most 16 points"):
         ms_deform_attn_bwd(v, M_SHAPES, l, a, g_out, pts)
+    shifted = torch.empty(value.numel() + 1, device=cuda)[1:].view(value.shape)  # 4 bytes off
+    shifted.copy_(value)
+    with pytest.raises(ValueError, match="16-byte"):
+        ms_deform_attn_bwd(shifted, M_SHAPES, loc, att, g_out, M_POINTS)
 
 
 def test_deform_bwd_kernel_is_one_graph_node_and_replays(cuda):

@@ -31,7 +31,8 @@ import jax
 import jax.numpy as jnp
 
 import test_torch_port_helpers  # noqa: F401  (thread count)
-from test_torch_port_deform_cases import DEFORM_CASES, HEADS, deform_case
+from test_torch_port_deform_cases import (DEFORM_CASES, HEADS, TILING_CASES, TILING_DIMS,
+                                         deform_case, tiling_case)
 
 GRAD_REL = 2e-4
 IMPLS = ("pallas", "mxu", "tiled")
@@ -101,6 +102,32 @@ def test_plain_backward_matches_jax(case, impl):
         tda.set_deform_bwd("pallas")
     for name, got, want in zip(("value", "loc", "att"), (v.grad, l.grad, a.grad), ours):
         assert torch.equal(got, want), name
+
+
+# every tiling case with the bf16 payload; the f32 one (JAX's f32 scatter
+# compiles for ~13 s a shape on the CPU) at one case of each head dim
+TILING_IMPLS = [(case, "mxu") for case in TILING_CASES] + [
+    (case, "pallas") for case in ("q1", "q7", "q500")]
+
+
+@pytest.mark.parametrize("case,impl", TILING_IMPLS)
+def test_plain_backward_matches_jax_on_tiling_cases(case, impl):
+    """The edges of the backward kernel's work tiling
+    (``test_torch_port_deform_cases.TILING_CASES``: 1, 7, 301 and 500
+    queries, B * H = 1, a level with one point, 16 points over 4 levels; head
+    dims 16, 32 and 64): the plain backward and the plain scatter, bf16
+    payload (``mxu``) and f32 (``pallas``), against JAX's gradients within
+    2e-4 of the largest."""
+    value, shapes, loc, att, pts = tiling_case(case)
+    b, q, heads = loc.shape[:3]
+    g_out = np.random.default_rng(2).normal(
+        size=(b, q, heads * TILING_DIMS[case])).astype(np.float32)
+    ref = _jax_grads(value, shapes, loc, att, pts, g_out, impl)
+    ours = _plain_grads(value, shapes, loc, att, pts, g_out, impl)
+    for name, got, want in zip(("value", "loc", "att"), ours, ref):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=GRAD_REL * (np.abs(want).max() + 1e-30), err_msg=name)
 
 
 def test_off_the_map_gives_no_entry_and_zero_gradients():

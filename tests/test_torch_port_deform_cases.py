@@ -21,6 +21,20 @@ f32, att [B, Q, 8, P] f32 softmaxed, num_points), from a seed:
 - ``off_the_map``: ``pixel_edges``' levels with every location off the map
   on one axis, drawn at random (-0.6, 1.7 or +-1e9 there): every corner
   outside, so the output and every gradient are 0.
+
+``TILING_CASES`` (``tiling_case``) are the edges of the backward kernel's
+work tiling (``csrc/ms_deform_attn_bwd.cu``: a warp takes a run of
+consecutive (query, point) slots of one level, batch and head):
+
+- ``q1``, ``q7``, ``q301``, ``q500``: that many queries, so that the last
+  run of a level's slots is cut short (points (3, 6, 3), 300 and 500 are
+  the serving and the train step's counts);
+- ``one_row``: B = 1 and one head, B * H = 1;
+- ``one_point_level``: points (3, 1, 4), a level with a single point;
+- ``p16_four_levels``: 16 points over 4 levels, (4, 4, 4, 4).
+
+Each has a head dim of its own (``TILING_DIMS``), so that the CPU test
+meets 16, 32 and 64; the CUDA tests take each case at every head dim.
 """
 
 from __future__ import annotations
@@ -30,6 +44,9 @@ import numpy as np
 DEFORM_CASES = ("pixel_edges", "one_level", "n_points", "head_dim_64", "four_levels",
                 "off_the_map")
 HEADS = 8
+TILING_CASES = ("q1", "q7", "q301", "q500", "one_row", "one_point_level", "p16_four_levels")
+TILING_DIMS = {"q1": 16, "q7": 64, "q301": 32, "q500": 32, "one_row": 64,
+               "one_point_level": 16, "p16_four_levels": 32}
 
 
 def _softmax(x):
@@ -69,4 +86,31 @@ def deform_case(name: str, b: int = 2, q: int = 17, seed: int = 0):
         for k in (0, 1):
             loc[..., k] = np.where(axis == k, off, loc[..., k])
     att = _softmax(rng.normal(size=(b, q, HEADS, p)))
+    return value, shapes, loc, att, pts
+
+
+def tiling_case(name: str, d: int = None, seed: int = 0):
+    """A case of ``TILING_CASES`` at head dim ``d`` (default
+    ``TILING_DIMS[name]``): (value [B, S, heads, d], spatial_shapes, loc [B,
+    Q, heads, P, 2], att [B, Q, heads, P], num_points), locations in
+    [-0.15, 1.15]."""
+    rng = np.random.default_rng(seed)
+    d = TILING_DIMS[name] if d is None else d
+    b, q, heads = 2, 17, HEADS
+    shapes, pts = ((12, 10), (6, 5), (3, 3)), (3, 6, 3)
+    if name in ("q1", "q7", "q301", "q500"):
+        q = int(name[1:])
+        b = 1 if q > 100 else 2
+    elif name == "one_row":
+        b, q, heads = 1, 45, 1
+    elif name == "one_point_level":
+        pts = (3, 1, 4)
+    elif name == "p16_four_levels":
+        shapes, pts = ((16, 16), (8, 8), (4, 4), (2, 2)), (4, 4, 4, 4)
+    else:
+        raise KeyError(name)
+    s, p = sum(h * w for h, w in shapes), sum(pts)
+    value = rng.normal(size=(b, s, heads, d)).astype(np.float32)
+    loc = rng.uniform(-0.15, 1.15, (b, q, heads, p, 2)).astype(np.float32)
+    att = _softmax(rng.normal(size=(b, q, heads, p)))
     return value, shapes, loc, att, pts

@@ -1,8 +1,10 @@
 """Helpers of ``chip_smoke.py`` that run on the host, on the CPU: the
-relabel threshold of its apps phase (``keep_threshold``) and the score
-drift between two backends near it (``threshold_drift``). The script
-imports only numpy and the standard library at module level, so it loads
-here."""
+relabel threshold of its apps phase (``keep_threshold``), the score drift
+between two backends near it (``threshold_drift``), and the reading of the
+backward kernel's ptxas lines (``ptxas_numbers``, ``bwd_build``); and those
+of ``chip_deform_bwd_ab.py``: its turn order, means and equality verdict.
+Both scripts import only numpy and the standard library at module level, so
+they load here."""
 
 import sys
 from pathlib import Path
@@ -12,6 +14,7 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_deform_bwd_ab  # noqa: E402
 import chip_smoke  # noqa: E402
 
 KEEP = chip_smoke.APPS_KEEP
@@ -217,3 +220,147 @@ def test_straddling_pairs_and_either_way_answers():
     model = Served(eager)
     way = chip_smoke.EitherWay(model, straddle, 0, conf, False)
     np.testing.assert_allclose(way(None)[0]["scores"], [0.7], rtol=1e-6)
+
+
+def test_infer_threshold_picks_the_frames_the_served_backend_keeps_most():
+    """``infer_threshold`` takes its threshold from the served scores alone
+    (``keep_threshold`` keeping 1 to APPS_KEEP in the busiest frame) and the
+    frames with the most detections at it, the first of equal ones; every
+    chosen frame count is what the threshold keeps there, and the busiest
+    keeps at least one. A frame without detections is allowed; no score at
+    all raises."""
+    rng = np.random.default_rng(0)
+    frames = [rng.uniform(0.2, 0.3, 25).astype(np.float32), np.zeros(0, np.float32),
+              rng.uniform(0.2, 0.29, 8).astype(np.float32),
+              rng.uniform(0.2, 0.28, 3).astype(np.float32)]
+    conf, chosen, dets = chip_smoke.infer_threshold(frames, 3)
+    assert conf == chip_smoke.keep_threshold(frames, chip_smoke.APPS_KEEP, low=1)[0]
+    at = [int((f >= conf).sum()) for f in frames]
+    assert 1 <= max(at) <= chip_smoke.APPS_KEEP and dets[0] == max(at)
+    assert dets == [at[i] for i in chosen] and dets == sorted(dets, reverse=True)
+    assert len(chosen) == 3 and chosen[0] == 0 and 1 not in chosen[:2]
+    tied = [np.asarray([0.5, 0.1], np.float32)] * 3
+    assert chip_smoke.infer_threshold(tied, 2)[1:] == ([0, 1], [1, 1])
+    with pytest.raises(ValueError):
+        chip_smoke.infer_threshold([np.zeros(0, np.float32)] * 2, 2)
+
+
+def _bwd_ptxas(stack=0, spill=0, registers=48, drop=0):
+    """ptxas_by_kernel's value for the backward kernel's 12 instances (the
+    last ``drop`` left out), each with these numbers."""
+    out = {}
+    for tv in ("f", "13__nv_bfloat16"):
+        for tp in ("f", "13__nv_bfloat16" if tv == "f" else "S1_"):
+            for d in (16, 32, 64):
+                name = f"_ZN12_GLOBAL__N_125ms_deform_attn_bwd_kernelI{tv}{tp}Li{d}ELi1EEEvPKT_"
+                out[name] = (f"{stack} bytes stack frame, {spill} bytes spill stores, {spill} "
+                             f"bytes spill loads; Used {registers} registers, used 0 barriers")
+    out["_ZN12_GLOBAL__N_121other_kernelEv"] = "Used 10 registers"
+    return dict(list(out.items())[drop:])
+
+
+def test_ptxas_numbers_reads_registers_stack_and_spills():
+    line = ("80 bytes stack frame, 0 bytes spill stores, 4 bytes spill loads; Used 71 "
+            "registers, used 0 barriers, 80 bytes cumulative stack size")
+    assert chip_smoke.ptxas_numbers(line) == {"registers": 71, "stack_frame_bytes": 80,
+                                              "spill_store_bytes": 0, "spill_load_bytes": 4}
+    assert chip_smoke.ptxas_numbers("Used 10 registers")["stack_frame_bytes"] is None
+
+
+def test_bwd_build_wants_every_instance_without_stack_or_spill():
+    """Clean: all 12 instances, none with a stack frame or spill; the main
+    instance (bf16 value, f32 payload, D = 32) found. A stack frame (the first
+    design's level table), a spill, or a missing instance is not clean."""
+    got = chip_smoke.bwd_build(_bwd_ptxas())
+    assert got["clean"] and got["instances"] == chip_smoke.BWD_INSTANCES == 12
+    assert got["main"] == {"registers": 48, "stack_frame_bytes": 0, "spill_store_bytes": 0,
+                           "spill_load_bytes": 0}
+    assert not chip_smoke.bwd_build(_bwd_ptxas(stack=80))["clean"]
+    assert not chip_smoke.bwd_build(_bwd_ptxas(spill=4))["clean"]
+    assert not chip_smoke.bwd_build(_bwd_ptxas(drop=1))["clean"]
+    assert chip_smoke.bwd_build({})["main"] is None
+
+
+def test_ab_turns_run_in_the_order_earlier_kernel_kernel_earlier():
+    calls = []
+
+    def time_one(who):
+        calls.append(who)
+        return float(len(calls))
+
+    turns = chip_deform_bwd_ab.in_turns(time_one)
+    assert calls == ["earlier", "kernel", "kernel", "earlier"]
+    assert turns == {"earlier": [1.0, 4.0], "kernel": [2.0, 3.0]}
+    assert chip_deform_bwd_ab.means(turns) == {"earlier": 2.5, "kernel": 2.5}
+    assert chip_deform_bwd_ab.means({"a": [0.1, 0.2, 0.6]})["a"] == pytest.approx(0.3)
+
+
+def test_bwd_verdict_wants_idx_contrib_and_both_gradients():
+    """``bwd_equal`` (the smoke's and the A/B script's verdict): idx equal,
+    contrib bit-equal and both gradients within GRAD_REL_TOL (the limit
+    itself passes); any one of them off is not."""
+    tol = chip_smoke.GRAD_REL_TOL
+    ok = {"idx_equal": True, "contrib_bit_equal": True, "grad_att_max_rel_err": tol,
+          "grad_loc_max_rel_err": 0.0}
+    assert chip_smoke.bwd_equal(ok)
+    for key, bad in (("idx_equal", False), ("contrib_bit_equal", False),
+                     ("grad_att_max_rel_err", 2 * tol), ("grad_loc_max_rel_err", 1.01 * tol),
+                     ("grad_att_max_rel_err", float("nan"))):
+        assert not chip_smoke.bwd_equal({**ok, key: bad}), key
+
+
+def test_bwd_compared_reads_gaps_idx_and_contrib_bits():
+    """``bwd_compared`` on the plain backward against itself and against a
+    copy with one contrib element moved by one bit and one idx changed;
+    and on the value-frozen outputs (no streams on either side)."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd_plain
+
+    value, loc, att, g, shapes, pts = _small_bwd_inputs()
+    for payload, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+        ref = ms_deform_attn_bwd_plain(value, shapes, loc, att, g, pts, payload)
+        same = chip_smoke.bwd_compared(ref, ref)
+        assert same["idx_equal"] and same["contrib_bit_equal"] and same["max_abs_err"] == 0.0
+        assert same["entries"] == 4 * 2 * 5 * 8 * 5
+        contrib = [c.clone() for c in ref[3]]
+        contrib[1].view(bits).view(-1)[3] += 1
+        idx = [i.clone() for i in ref[2]]
+        idx[0].view(-1)[0] = -7
+        grad_att = ref[0] * (1 + 1e-3)
+        moved = chip_smoke.bwd_compared((grad_att, ref[1], idx, contrib), ref)
+        assert not moved["idx_equal"] and not moved["contrib_bit_equal"]
+        assert moved["grad_att_max_rel_err"] == pytest.approx(1e-3, rel=1e-2)
+        assert not chip_smoke.bwd_equal(moved)
+    frozen = ms_deform_attn_bwd_plain(value, shapes, loc, att, g, pts, need_value=False)
+    assert chip_smoke.bwd_equal(chip_smoke.bwd_compared(frozen, frozen))
+    assert not chip_smoke.bwd_compared(ref, frozen)["idx_equal"]
+
+
+def _small_bwd_inputs():
+    """value [2, 20, 8, 32], loc, att, g_out over levels (4, 4), (2, 2) with
+    points (3, 2), 5 queries, from a seed."""
+    import torch
+
+    b, q, h, d = 2, 5, 8, 32
+    rng = np.random.default_rng(0)
+    value = torch.from_numpy(rng.normal(size=(b, 20, h, d)).astype(np.float32))
+    loc = torch.from_numpy(rng.uniform(0, 1, (b, q, h, 5, 2)).astype(np.float32))
+    att = torch.from_numpy(rng.uniform(0, 1, (b, q, h, 5)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(b, q, h * d)).astype(np.float32))
+    return value, loc, att, g, ((4, 4), (2, 2)), (3, 2)
+
+
+def test_ab_output_bytes_counts_every_output_once():
+    """The two gradients and each level's idx and contrib views (one
+    allocation each) of the plain backward on a small case."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_bwd_plain
+
+    value, loc, att, g, shapes, pts = _small_bwd_inputs()
+    points = 2 * 5 * 8 * 5
+    for payload, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        out = ms_deform_attn_bwd_plain(value, shapes, loc, att, g, pts, payload)
+        assert chip_deform_bwd_ab.output_bytes(out) == (points * 3 * 4 + 4 * points * 4
+                                                        + 4 * points * 32 * size)
