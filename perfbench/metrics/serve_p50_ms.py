@@ -1,0 +1,9 @@
+"""Median latency of every frame in the window, in ms."""
+
+import numpy as np
+
+
+def read(rec):
+    if rec.get("kind") != "serve_stream" or not rec["latency_s"]:
+        return None
+    return float(np.median(rec["latency_s"])) * 1e3
