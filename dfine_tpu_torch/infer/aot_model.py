@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..ops.kernels import ms_deform_attn_fwd
+from ..utils.profiling import span
 from .torch_model import TorchModel, decode
 
 
@@ -59,7 +60,8 @@ class GraphProgram:
 
     def __call__(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         self.static_in.copy_(images)
-        self.graph.replay()
+        with span("serve.launch"):
+            self.graph.replay()
         return {k: v.clone() for k, v in self.static_out.items()}
 
 

@@ -23,6 +23,7 @@ raises.
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -35,9 +36,11 @@ from ..ops.preprocess import preprocess_letterbox, preprocess_plain, preprocess_
 from ..postprocess import postprocess_predictions
 from ..utils.checkpoint import (load_jax_variables, load_torch_checkpoint, read_state,
                                 unflatten)
+from ..utils.profiling import count, span
 from .contours import mask2poly
 from .int8 import load_int8_variables
 
+_LOG = logging.getLogger("dfine_tpu_torch")
 
 # canonical source aspect ratios covering common camera/video geometries;
 # each maps to ONE stride-32 rect bucket at a given input size
@@ -76,6 +79,9 @@ def load_weights(model: torch.nn.Module, model_path: Optional[str]) -> torch.nn.
 
 
 class BaseServing:
+    _calls = 0  # calls served: a frame's spans share its number
+    _warned_host_copy = False
+
     def __init__(
         self,
         model_name: str,
@@ -137,7 +143,15 @@ class BaseServing:
     def _preprocess(self, image_bgr: np.ndarray):
         """-> ([1, 3, h, w] f32 on the device, proc_hw, orig_hw, pad_tl):
         pad_tl is the (pad_top, pad_left) applied, (0, 0) in rect mode, None
-        for plain resize."""
+        for plain resize. A frame that is not C-contiguous is copied on the
+        host first (counted as ``serve.host_copies``)."""
+        if not image_bgr.flags.c_contiguous:
+            count("serve.host_copies")
+            if not self._warned_host_copy:
+                self._warned_host_copy = True
+                _LOG.warning("serving: a frame of shape %s is not C-contiguous; each such frame "
+                             "is copied on the host before its H2D (hand over contiguous HWC "
+                             "frames)", image_bgr.shape)
         raw = torch.from_numpy(np.ascontiguousarray(image_bgr)).to(self.device)
         rgb = raw.flip(-1)[None]  # BGR -> RGB, [1, H, W, 3] uint8
         pad_tl = None
@@ -174,10 +188,15 @@ class BaseServing:
         return results
 
     def __call__(self, images) -> List[Dict[str, np.ndarray]]:
-        batch, proc_sizes, orig_sizes, pads = self._prepare_inputs(images)
-        with torch.inference_mode():
-            decoded = self._predict(batch)
-            return self._postprocess(decoded, proc_sizes, orig_sizes, pads)
+        self._calls += 1
+        with span("serve.frame", root=self._calls):
+            with span("serve.pre"):
+                batch, proc_sizes, orig_sizes, pads = self._prepare_inputs(images)
+            with torch.inference_mode():
+                with span("serve.program"):
+                    decoded = self._predict(batch)
+                with span("serve.post"):
+                    return self._postprocess(decoded, proc_sizes, orig_sizes, pads)
 
     def _test_pred(self) -> None:
         rnd = np.random.default_rng(0).integers(0, 255, size=(1100, 1000, 3), dtype=np.uint8)

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils.profiling import count, span
+
 
 def topk_decode(logits: torch.Tensor, boxes: torch.Tensor, num_top_queries: int = 300,
                 use_focal_loss: bool = True,
@@ -139,9 +141,11 @@ def postprocess_predictions(
     top-K queries, and a kept detection past them gets an empty mask.
     ``keep_ratio``: the frame was letterboxed (or rect-canvassed), with
     ``pads[b]`` the (pad_top, pad_left) applied to image b (None: centred)."""
-    scores = decoded["scores"].float().cpu().numpy()
-    labels = decoded["labels"].cpu().numpy()
-    boxes = decoded["boxes"].float().cpu().numpy()
+    with span("serve.d2h"):  # the host waits here for the card's work
+        scores = decoded["scores"].float().cpu().numpy()
+        labels = decoded["labels"].cpu().numpy()
+        boxes = decoded["boxes"].float().cpu().numpy()
+    count("serve.d2h_copies", 3)
     masks = decoded.get("masks")  # probabilities
     results = []
     for b in range(scores.shape[0]):
@@ -171,6 +175,9 @@ def postprocess_predictions(
                 pad = binary.new_zeros((n_kept - binary.shape[0], oh, ow))
                 binary = torch.cat([binary, pad], 0)
             box_t = torch.from_numpy(out["boxes"]).to(masks.device)
-            out["masks"] = cleanup_masks(binary, box_t).cpu().numpy()
+            kept = cleanup_masks(binary, box_t)
+            with span("serve.d2h"):
+                out["masks"] = kept.cpu().numpy()
+            count("serve.d2h_copies")
         results.append(out)
     return results

@@ -30,6 +30,7 @@ from ..matcher import MatcherConfig, matching_cost, solve_matchings
 from ..models.denoising import dn_match_indices
 from ..ops.boxes import box_cxcywh_to_xyxy, box_iou_aligned, generalized_box_iou_aligned
 from ..ops.fdr import bbox2distance
+from ..utils.profiling import span
 
 def default_weight_dict() -> Dict[str, float]:
     """Loss weights (reference src/d_fine/configs.py:26-38)."""
@@ -271,8 +272,9 @@ def criterion_forward(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
     bx_s = torch.stack([s_["pred_boxes"] for s_ in main + enc]).float()
     lb_s = torch.stack([labels] * len(main) + [enc_labels] * len(enc))  # [S, B, G]
     q = lg_s.shape[2]
-    costs = matching_cost(lg_s.detach(), bx_s.detach(), lb_s, tboxes, valid, cfg.matcher)
-    match, go_q, go_t, go_valid = solve_matchings(costs, valid)
+    with span("train.match"):
+        costs = matching_cost(lg_s.detach(), bx_s.detach(), lb_s, tboxes, valid, cfg.matcher)
+        match, go_q, go_t, go_valid = solve_matchings(costs, valid)
 
     counts = _mean_over_ranks(torch.stack([valid.sum(), go_valid.sum()]).float(), axis_name)
     num_boxes, num_boxes_go = counts.clamp_min(1.0).unbind()

@@ -45,6 +45,7 @@ import torch.nn as nn
 
 from ..models.denoising import CdnNoise
 from ..parallel.dp import all_reduce_flat_, all_reduce_grads_, all_reduce_mean_
+from ..utils.profiling import span
 from .criterion import CriterionConfig, criterion_forward
 from .flat_optim import FlatOptimizer, ema_update_flat
 from .optim import EMA_BASE, Optimizer, ema_update
@@ -83,6 +84,10 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         [B, G, 4] cxcywh, valid [B, G] and, for the ``masks`` loss, masks
         [B, G, Hm, Wm] and mask_valid [B, G]} on the model's device. The CDN
         noise is ``dn_noise`` or drawn from ``generator``."""
+        with span("train.step", root=state.step):
+            return _step(state, batch, generator, dn_noise)
+
+    def _step(state, batch, generator, dn_noise):
         model, opt = state.model, state.optimizer
         flat = isinstance(opt, FlatOptimizer)
         for name in frozen:
@@ -90,21 +95,25 @@ def make_train_step(crit_cfg: CriterionConfig, compute_dtype: torch.dtype = torc
         model.train()
         opt.zero_grad()
         dev = batch["images"].device
-        with torch.autocast(dev.type, dtype=compute_dtype,
-                            enabled=compute_dtype != torch.float32):
+        with span("train.forward"), torch.autocast(dev.type, dtype=compute_dtype,
+                                                   enabled=compute_dtype != torch.float32):
             out = model(batch["images"], batch["targets"], dn_noise, generator)
-        losses = criterion_forward(out, batch["targets"], crit_cfg, axis_name=axis_name)
-        losses["total"].backward()
-        if axis_name is not None:
-            if flat:
-                all_reduce_flat_(opt.grad_flat)
-            else:
-                all_reduce_grads_(opt.params)
-            all_reduce_mean_(bn_statistics(model))
-        grad_norm = opt.step()
+        with span("train.criterion"):
+            losses = criterion_forward(out, batch["targets"], crit_cfg, axis_name=axis_name)
+        with span("train.backward"):
+            losses["total"].backward()
+            if axis_name is not None:
+                if flat:
+                    all_reduce_flat_(opt.grad_flat)
+                else:
+                    all_reduce_grads_(opt.params)
+                all_reduce_mean_(bn_statistics(model))
+        with span("train.optim"):
+            grad_norm = opt.step()
         state.step += 1
         if opt.mini_step == 0:  # an optimizer step: its count drives the warm-up
-            (ema_update_flat if flat else ema_update)(state.ema, model, opt.count, ema_base)
+            with span("train.ema"):
+                (ema_update_flat if flat else ema_update)(state.ema, model, opt.count, ema_base)
         metrics = {"loss": losses["total"].detach(), "grad_norm": grad_norm.detach()}
         metrics.update({k: v.detach() for k, v in losses.items()
                         if "_" not in k or k in METRIC_TERMS})

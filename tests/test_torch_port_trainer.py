@@ -289,12 +289,12 @@ def test_pretrained_is_offline(tmp_path, monkeypatch):
 def test_logging_and_profiling_helpers(tmp_path, monkeypatch):
     """``MetricsCSV`` keeps a resumed file's header; ``WandbGate`` is off
     unless enabled and wandb imports, and its ``watch`` logs one histogram
-    per top-level module; ``Timer``, ``estimate_eta``, ``trace`` (a Chrome
-    trace of the region) and ``device_memory_stats`` (empty without CUDA)."""
+    per top-level module; ``trace`` (a Chrome trace of the region holding
+    the program's spans) and ``device_memory_stats`` (empty without CUDA)."""
     import types
 
     from dfine_tpu_torch.utils.logging import MetricsCSV, WandbGate
-    from dfine_tpu_torch.utils.profiling import Timer, device_memory_stats, estimate_eta, trace
+    from dfine_tpu_torch.utils.profiling import device_memory_stats, span, trace
 
     MetricsCSV(tmp_path / "m.csv").log({"epoch": 0, "loss": torch.tensor(1.5)})
     MetricsCSV(tmp_path / "m.csv").log({"epoch": 1, "extra": 3, "loss": 0.5})
@@ -314,13 +314,12 @@ def test_logging_and_profiling_helpers(tmp_path, monkeypatch):
     assert logged[0][1]["params/0"] == ("hist", 16) and logged[0][1]["params/1"] == ("hist", 10)
     assert logged[-1] == "finish"
 
-    timer = Timer()
-    for _ in range(3):
-        with timer:
-            pass
-    assert timer.summary()["n"] == 2 and estimate_eta(2, 10, 4.0) == 16.0
     with trace(tmp_path / "trace"):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        with span("train.step", root=0):
+            torch.ones(8).sum()
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    step = [e for e in events if e.get("name") == "train.step"]
+    assert step and any(e.get("name") == "aten::sum" and step[0]["ts"] <= e["ts"]
+                        for e in events)
     if not torch.cuda.is_available():
         assert device_memory_stats() == []
