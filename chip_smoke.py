@@ -43,11 +43,13 @@ Phases, each printed as one JSON line:
    kernel), counts read around it;
 6. train: the m detect train step (``make_train_step``: CDN queries,
    Hungarian matching on the device, criterion, AdamW, EMA) at 640 px,
-   batch 8, bf16 autocast over fp32 parameters, with its kernel launches
-   counted per step (1 solver launch a step, 4 backward launches) and the
-   solver's device ms a step (CUDA events around it, and its kernel in a
-   profile); then one step with the backward kernel and one with its plain
-   closed form patched in, in turns, profiled (device ms and activities);
+   batch 8, bf16 autocast over fp32 parameters, replaying its CUDA graph:
+   the launches the graph holds (1 solver launch a step, 4 backward
+   launches; none from Python on a replay) and the solver's device ms a
+   step (CUDA events around it in eager steps, and its kernel in a
+   profile); then one eager step with the backward kernel and one with its
+   plain closed form patched in, in turns, profiled (device ms and
+   activities);
 6b. hungarian: one more train step with its matching span (matching_cost,
    the solver, the go union) under ``set_sync_debug_mode("error")``; the
    Hungarian kernel (``csrc/hungarian_lap.cu``) against its plain version
@@ -245,6 +247,7 @@ GRAD_BATCH = 8
 TRAIN_BATCH, TRAIN_G, TRAIN_BOXES = 8, 100, (5, 40)
 TRAIN_QUERIES = 2 * TRAIN_G + QUERIES
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+SOLVER_EAGER_STEPS = 3  # eager steps whose solver launches CUDA events time
 MASK_HW = (IMG // 4, IMG // 4)  # the mask head's stride 4 at m
 # the l detect step with the trainer's l options: 4 micro-steps checked, 8 timed
 L_SIZE, L_BATCH, L_ACCUM, L_CHECKED, L_TIMED, L_DECODER_LAYERS = "l", 4, 2, 4, 8, 6
@@ -870,14 +873,13 @@ def phase_deform_fwd(res):
           "shape": f"m@640 B={TRAIN_BATCH} Q={TRAIN_QUERIES} bf16 value", **res["deform_train"]})
 
 
-def _kernels_of(fn, calls: int = 10) -> list:
-    """The device activities of one call of ``fn`` (torch.profiler), by name:
-    each activity's count in a window of ``calls`` calls over ``calls``. A
-    profiler window in which CUPTI recorded no device activity at all is
-    taken again, after a pause of half a second, up to six windows; an empty
-    list if every window was dropped. (On the H100, windows of one short
-    call late in a run were dropped six times in a row, while windows of
-    many calls were kept.)"""
+def _device_counts(fn, calls: int = 10) -> dict:
+    """The device activities of ``calls`` calls of ``fn`` (torch.profiler),
+    by name: {name: count in the window}. A profiler window in which CUPTI
+    recorded no device activity at all is taken again, after a pause of half
+    a second, up to six windows; empty if every window was dropped. (On the
+    H100, windows of one short call late in a run were dropped six times in
+    a row, while windows of many calls were kept.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -888,11 +890,38 @@ def _kernels_of(fn, calls: int = 10) -> list:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        names = sorted(e.key for e in _device_rows(prof) for _ in range(round(e.count / calls)))
-        if names:
+        counts = {e.key: e.count for e in _device_rows(prof)}
+        if counts:
             break
         time.sleep(0.5)
-    return names
+    return counts
+
+
+def _kernels_of(fn, calls: int = 10) -> list:
+    """The device activities of one call of ``fn`` by name (``_device_counts``
+    over ``calls``): each activity's count in the window over ``calls``; an
+    empty list if every window was dropped."""
+    return sorted(k for k, n in _device_counts(fn, calls).items()
+                  for _ in range(round(n / calls)))
+
+
+# each kernel wrapper's one kernel, as the device trace names it
+KERNEL_SYMBOLS = {"ms_deform_attn_fwd": "ms_deform_attn_fwd_kernel",
+                  "ms_deform_attn_bwd": "ms_deform_attn_bwd_kernel",
+                  "rows_scatter_add": "rows_scatter_add_tile_kernel",
+                  "rows_scatter_add_mxu": "rows_scatter_add_mma_kernel",
+                  "rows_scatter_add_tiled": "rows_scatter_add_tile_sorted_kernel",
+                  "hungarian_lap": "hungarian_lap_kernel"}
+
+
+def replayed_launches(fn, calls: int) -> dict:
+    """Each kernel wrapper's launches in ``calls`` calls of ``fn``, counted
+    by its kernel's symbol in the profiler's device trace (a replayed CUDA
+    graph runs them with no Python launch, so the wrappers' counters miss
+    it); all 0 if CUPTI dropped every window."""
+    counts = _device_counts(fn, calls)
+    return {w: sum(n for k, n in counts.items() if re.search(rf"\b{sym}\b", k))
+            for w, sym in KERNEL_SYMBOLS.items()}
 
 
 GRAPH_NODE_TYPES = ("KERNEL", "MEMSET", "MEMCPY", "HOST", "EMPTY", "GRAPH", "EVENT_RECORD",
@@ -1546,10 +1575,23 @@ def bwd_turns(step_fn) -> dict:
     return out
 
 
+def _graph_launches(step) -> dict:
+    """The kernel launches the step's one captured graph holds (a replay
+    runs them with no Python launch, so the wrappers' counters miss it)."""
+    graphs = list(step.graphs.values())
+    if len(graphs) != 1:
+        raise AssertionError(f"{len(graphs)} captured train-step graphs, want 1")
+    return graphs[0].launches
+
+
 def phase_train(res):
     """The m detect train step on the card: bf16 autocast, fp32 parameters,
-    the default (``"pallas"``) deformable-attention backward; then the step
-    with the backward kernel and with the plain closed form in turns."""
+    the default (``"pallas"``) deformable-attention backward, each step a
+    replay of the step's CUDA graph (the first warm-up call captures it):
+    the graph holds the step's launches and a replay launches none from
+    Python. Then the solver timed by CUDA events in eager steps, and the
+    eager step with the backward kernel and with the plain closed form in
+    turns."""
     import torch
 
     from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1566,23 +1608,26 @@ def phase_train(res):
     want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
-    times, per_step, metrics, total = [], [], [], {k: 0 for k in want}
-    solver_events = []
+    times, per_step, metrics = [], [], []
+    for _ in range(TRAIN_STEPS):
+        reset_launch_counts()  # the main path of this slice: one replayed train step
+        t = time.perf_counter()
+        _, m = step(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t)
+        per_step.append(launch_counts())
+        metrics.append({k: float(v) for k, v in m.items()})
+    graph_launches = _graph_launches(step)
+    # what TRAIN_STEPS more replays ran on the card, counted in its device trace
+    total = replayed_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
+    res["train_counts"], res["train_graph_launches"] = total, graph_launches
+    solver_events = []  # CUDA events around the solver: eager steps (a replay runs no Python)
     with timed_matching(solver_events):
-        for _ in range(TRAIN_STEPS):
-            reset_launch_counts()  # the main path of this slice: one train step
-            t = time.perf_counter()
-            _, m = step(state, batch, gen)
-            sync()
-            times.append(time.perf_counter() - t)
-            counts = launch_counts()
-            per_step.append(counts)
-            for k in total:
-                total[k] += counts[k]
-            metrics.append({k: float(v) for k, v in m.items()})
-    res["train_counts"] = total
-    solver = {"event_span_ms": sum(a.elapsed_time(b) for a, b in solver_events) / TRAIN_STEPS,
-              "calls_per_step": len(solver_events) / TRAIN_STEPS}
+        for _ in range(SOLVER_EAGER_STEPS):
+            step.eager(state, batch, gen)
+    sync()
+    solver = {"event_span_ms": sum(a.elapsed_time(b) for a, b in solver_events)
+              / SOLVER_EAGER_STEPS, "calls_per_step": len(solver_events) / SOLVER_EAGER_STEPS}
     p50, p90 = percentiles(times)
     finite = all(np.isfinite(list(m_.values())).all() for m_ in metrics)
     grads_finite = all(torch.isfinite(p.grad).all().item() for p in state.model.parameters()
@@ -1592,8 +1637,9 @@ def phase_train(res):
     emit({"phase": "train", "model": f"{SIZE} detect {IMG}px, bf16 autocast, fp32 params",
           "batch": TRAIN_BATCH, "gt_slots": TRAIN_G, "steps": TRAIN_STEPS,
           "step_p50_ms": p50, "step_p90_ms": p90, "metrics_first": metrics[0],
-          "metrics_last": metrics[-1], "launches_per_step": per_step[0],
-          "launches_total": total, "hungarian_device_per_step": solver,
+          "metrics_last": metrics[-1], "graph_launches": graph_launches,
+          "python_launches_per_replay": per_step[0],
+          "launches_in_profiled_replays": total, "hungarian_device_per_step": solver,
           "params_moved": moved, "ema_moved": ema_moved,
           "n_params": len(p0), "losses_finite": finite, "grads_finite": grads_finite})
     prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
@@ -1602,15 +1648,24 @@ def phase_train(res):
     res["train_solver"] = solver
     emit({"phase": "train_profile", "what": "one train step",
           "hungarian_device_per_step": solver, **prof})
-    res["train_bwd_turns"] = bwd_turns(lambda: (step(state, batch, gen), sync()))
-    emit({"phase": "train_bwd_turns", "what": "one train step with the deform backward's "
-          "kernel and with its plain closed form, in turns (profiler)",
+    res["train_bwd_turns"] = bwd_turns(lambda: (step.eager(state, batch, gen), sync()))
+    emit({"phase": "train_bwd_turns", "what": "one eager train step with the deform "
+          "backward's kernel and with its plain closed form, in turns (profiler)",
           **res["train_bwd_turns"]})
-    res["train_run"] = (state, step, batch, gen)
-    bad = [c for c in per_step if c != want]
-    if bad or not finite or not grads_finite:
-        raise AssertionError(f"train: counts {bad[:1]} (want {want}), finite {finite}, "
-                             f"grads finite {grads_finite}")
+    # the later phases patch Python functions into the step: they run it
+    # eagerly, and the graph and its pool go
+    step.graphs.clear()
+    state.optimizer.zero_grad()
+    torch.cuda.empty_cache()
+    res["train_run"] = (state, step.eager, batch, gen)
+    bad = [c for c in per_step if any(c.values())]
+    replays_want = {k: n * TRAIN_STEPS for k, n in want.items()}
+    if (bad or graph_launches != want or total != replays_want or not finite
+            or not grads_finite):
+        raise AssertionError(f"train: graph launches {graph_launches} (want {want}), in "
+                             f"{TRAIN_STEPS} profiled replays {total} (want {replays_want}), "
+                             f"Python launches in a replay {bad[:1]}, finite {finite}, grads "
+                             f"finite {grads_finite}")
     if moved < 0.9 * len(p0) or ema_moved < 0.9 * len(p0):
         raise AssertionError(f"train: {moved} params and {ema_moved} EMA tensors moved "
                              f"of {len(p0)}")
@@ -2025,7 +2080,7 @@ def _worst(rel, n=5):
 
 
 def phase_train_bwd_variants(res):
-    """One train step each with the default, ``mxu`` and ``tiled`` backward,
+    """One eager train step each with the default, ``mxu`` and ``tiled`` backward,
     on the same weights, batch and CDN noise, in fp32 and under bf16
     autocast, and the default twice more as the controls: the losses agree,
     and so does each parameter's gradient outside rules (a) and (c)."""
@@ -2048,8 +2103,8 @@ def phase_train_bwd_variants(res):
             for run in ["pallas", *controls, "mxu", "tiled"]:
                 set_deform_bwd("pallas" if run in controls else run)
                 state, step = _train_setup(dtype, model=copy.deepcopy(base).to(DEV))
-                reset_launch_counts()  # this step: the chosen backward's kernel
-                _, m = step(state, batch, dn_noise=noise)
+                reset_launch_counts()  # this eager step: the chosen backward's kernel
+                _, m = step.eager(state, batch, dn_noise=noise)
                 sync()
                 runs[run] = (float(m["loss"]), _unclipped_grads(state, m), launch_counts())
                 del state
@@ -2225,8 +2280,9 @@ def _parity_at(phase, init, cpu_model, noise, seed, seg):
         t = time.perf_counter()
         with query_selection(state.model) as chosen, captured_losses([]) as terms, \
                 lab_terms(state.model, {}) as fields:
-            _, m = step(state, make_train_batch(PARITY_BATCH, seed, dev, masks=seg),
-                        dn_noise=noise.to(dev))
+            # eager on both sides: the hooks read each call of the forward
+            _, m = step.eager(state, make_train_batch(PARITY_BATCH, seed, dev, masks=seg),
+                              dn_noise=noise.to(dev))
         if dev != "cpu":
             sync()
         m = {k: float(v) for k, v in m.items()}
@@ -2382,7 +2438,9 @@ def _mask_product_ms(calls) -> dict:
 def phase_train_seg(res):
     """The m det+seg train step on the card: bf16 autocast, fp32 parameters,
     the ``masks`` loss on GT ellipses [8, 100, 160, 160] made on the host
-    and moved to the card before the step."""
+    and moved to the card before the step; each timed step a replay of the
+    step's CUDA graph. Every loss term is read from an eager step before
+    and after them, the mask-logit products' inputs from another."""
     import torch
 
     from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -2402,19 +2460,22 @@ def phase_train_seg(res):
     want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
             "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
-    times, per_step, total, terms = [], [], {k: 0 for k in want}, []
+    times, per_step, terms = [], [], []
     torch.cuda.reset_peak_memory_stats()
+    with captured_losses(terms):  # every set's terms: an eager step (a replay runs no Python)
+        step.eager(state, batch, gen)
+    for _ in range(TRAIN_STEPS):
+        reset_launch_counts()  # the main path of this phase: one replayed det+seg step
+        t = time.perf_counter()
+        step(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t)
+        per_step.append(launch_counts())
     with captured_losses(terms):
-        for _ in range(TRAIN_STEPS):
-            reset_launch_counts()  # the main path of this phase: one det+seg train step
-            t = time.perf_counter()
-            step(state, batch, gen)
-            sync()
-            times.append(time.perf_counter() - t)
-            counts = launch_counts()
-            per_step.append(counts)
-            for k in total:
-                total[k] += counts[k]
+        step.eager(state, batch, gen)
+    graph_launches = _graph_launches(step)
+    # what TRAIN_STEPS more replays ran on the card, counted in its device trace
+    total = replayed_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
     res["train_seg_counts"] = total
     first, last = ({k: float(v) for k, v in t_.items()} for t_ in (terms[0], terms[-1]))
     n_dn = DECODER_LAYERS - 1  # with masks the last DN layer is "_dn_final"
@@ -2434,23 +2495,29 @@ def phase_train_seg(res):
           "batch": TRAIN_BATCH, "gt_slots": TRAIN_G, "gt_masks": [TRAIN_BATCH, TRAIN_G, *MASK_HW],
           "steps": TRAIN_STEPS, "step_p50_ms": p50, "step_p90_ms": p90,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
-          "launches_per_step": per_step[0], "launches_total": total,
-          "loss_terms_first": first, "loss_terms_last": last,
+          "graph_launches": graph_launches, "python_launches_per_replay": per_step[0],
+          "launches_in_profiled_replays": total, "loss_terms_first": first,
+          "loss_terms_last": last,
           "mask_terms_expected": len(mask_keys), "mask_terms_missing": missing,
           "terms_finite": finite, "params_moved": moved, "n_params": len(p0),
           "mask_params_moved": mask_moved, "n_mask_params": len(mask_part),
           "ema_moved": ema_moved, "ema_mask_moved": ema_mask_moved})
     with captured_mask_products([]) as calls:
-        prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
+        step.eager(state, batch, gen)
+    sync()
+    prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
     products = _mask_product_ms(calls)
     emit({"phase": "train_seg_profile", "what": "one det+seg train step", **prof,
           "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50,
           "mask_products": products})
     del state, batch
     torch.cuda.empty_cache()
-    bad = [c for c in per_step if c != want]
-    if bad or missing or not finite:
-        raise AssertionError(f"train_seg: counts {bad[:1]} (want {want}), mask terms missing "
+    bad = [c for c in per_step if any(c.values())]
+    replays_want = {k: n * TRAIN_STEPS for k, n in want.items()}
+    if bad or graph_launches != want or total != replays_want or missing or not finite:
+        raise AssertionError(f"train_seg: graph launches {graph_launches} (want {want}), in "
+                             f"{TRAIN_STEPS} profiled replays {total} (want {replays_want}), "
+                             f"Python launches in a replay {bad[:1]}, mask terms missing "
                              f"{missing}, finite {finite}")
     if (moved < 0.9 * len(p0) or mask_moved != len(mask_part) or ema_moved < 0.9 * len(p0)
             or ema_mask_moved != len(mask_part)):
@@ -2489,6 +2556,9 @@ def phase_train_l_frozen(res):
     checks, failures, per_step, times = [], [], [], []
     total = {k: 0 for k in want}
 
+    def fp32(x: float) -> float:
+        return float(torch.tensor(x, dtype=torch.float32))
+
     def micro_step():
         reset_launch_counts()  # the main path of this phase: one micro-step
         t = time.perf_counter()
@@ -2511,9 +2581,10 @@ def phase_train_l_frozen(res):
                 if k not in frozen and v.grad is not None and bool(v.grad.any())}
         ema_changed = sum(int(not torch.equal(e0[k], v))
                           for k, v in state.ema.state_dict().items() if v.is_floating_point())
-        lrs = {g["group"]: g["lr"] for g in opt.adamw.param_groups}
-        want_lr = {g: peaks["backbone" if g.startswith("backbone") else "rest"](opt.count - 1)
-                   for g in lrs} if stepped else None  # set only when the optimizer steps
+        lrs = {g["group"]: float(g["lr"]) for g in opt.adamw.param_groups}
+        # written only when the optimizer steps, into fp32 tensors
+        want_lr = {g: fp32(peaks["backbone" if g.startswith("backbone") else "rest"](
+            opt.count - 1)) for g in lrs} if stepped else None
         check = {"micro_step": micro, "optimizer_count": opt.count, "stepped": stepped,
                  "grad_norm": float(m["grad_norm"]), "loss": float(m["loss"]),
                  "changed": len(changed), "frozen_changed": len(changed & frozen),
@@ -3172,31 +3243,46 @@ def captured_sweep(calls: dict):
 
 def _trainer_run(trainer) -> dict:
     """``trainer.train()`` with every launch count set to 0 just before and
-    read just after; fails on a caught crash (the trainer logs it and still
-    runs its final eval) and on counts other than DECODER_LAYERS sampling
-    launches a step and an eval batch and 3 x DECODER_LAYERS scatters a
-    step."""
+    read just after, and the tracer's step counters; fails on a caught
+    crash (the trainer logs it and still runs its final eval) and on counts
+    other than DECODER_LAYERS sampling launches a step run from Python (an
+    eager step, each of a capture's warm-up steps and the capture itself;
+    a replay launches none) and an eval batch, 3 x DECODER_LAYERS scatters
+    such a step, and a graph per capture holding one step's launches."""
     from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dfine_tpu_torch.train.train_step import GRAPH_WARMUP
+    from dfine_tpu_torch.utils import profiling
 
     bs = trainer.cfg.train.batch_size
+    profiling.drain()
     reset_launch_counts()  # the main path of this phase: the trainer's whole run
     t0 = time.perf_counter()
-    final = trainer.train()
+    with profiling.tracing(True):
+        final = trainer.train()
     sync()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
+    tracer = profiling.drain()["counters"]
     if trainer.failure is not None:
         raise AssertionError(f"trainer: the run failed: {trainer.failure!r}")
     steps = len(trainer.timing["step_s"])
+    captures, replays, eager = (tracer.get(f"train.{k}", 0)
+                                for k in ("graph_captures", "graph_replays", "eager_steps"))
+    python = eager + (GRAPH_WARMUP + 1) * captures  # steps whose kernels Python launched
     eval_batches = sum(-(-e["images"] // bs) for e in trainer.timing["eval"])
-    want = {"ms_deform_attn_fwd": DECODER_LAYERS * (steps + eval_batches),
-            "ms_deform_attn_bwd": DECODER_LAYERS * steps,
-            "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES) * steps,
-            "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": steps}
-    if counts != want:
-        raise AssertionError(f"trainer: launches {counts}, want {want} ({steps} steps, "
-                             f"{eval_batches} eval batches)")
+    one = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
+           "rows_scatter_add": DECODER_LAYERS * len(M_SHAPES),
+           "rows_scatter_add_mxu": 0, "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
+    want = {k: v * python for k, v in one.items()}
+    want["ms_deform_attn_fwd"] += DECODER_LAYERS * eval_batches
+    graphs = [g.launches for g in getattr(trainer.train_step, "graphs", {}).values()]
+    if (counts != want or replays + eager != steps or any(g != one for g in graphs)
+            or (trainer.device.type == "cuda" and not trainer.dp_enabled and not replays)):
+        raise AssertionError(f"trainer: launches {counts}, want {want} ({steps} steps: "
+                             f"{captures} captures, {replays} replays, {eager} eager; "
+                             f"{eval_batches} eval batches); graphs hold {graphs}, want {one}")
     return {"seconds": seconds, "steps": steps, "eval_batches": eval_batches,
+            "captures": captures, "replays": replays, "eager_steps": eager,
             "launches": counts, "final": final}
 
 
@@ -4795,10 +4881,12 @@ def phase_wide_tail(res):
     """Path (A): D-FINE-m detect with ``decoder.layer_scale`` 2 past
     ``eval_idx`` 1 (layers 2-3 at d = 512, FFN 2048, head dim 64). The
     kernels at D = 64 against their plain versions; then the train step
-    (bf16, batch 8, G = 100): TRAIN_WARMUP steps, TRAIN_STEPS timed with
-    their launches by kernel and head dim (2 + 2 sampling, 6 + 6 scatter
-    launches a step), p50/p90, device ms and idle share of one step, peak
-    memory; the scatters on one more step's own D = 64 inputs; the first
+    (bf16, batch 8, G = 100): TRAIN_WARMUP steps (the first captures the
+    step's CUDA graph, its launches by kernel and head dim counted: 2 + 2
+    sampling, 6 + 6 scatter launches a step), TRAIN_STEPS replays timed,
+    the launches the graph holds, p50/p90, device ms and idle share of one
+    step, peak memory; the scatters on one more eager step's own D = 64
+    inputs; the first
     step in fp32 card against CPU (phase_train_parity's rules); and
     ``TorchModel`` serving the trained weights from a ``.pth``, plain and
     deploy-fused, eval stopping at ``eval_idx`` (2 sampling launches a frame,
@@ -4810,6 +4898,7 @@ def phase_wide_tail(res):
     from dfine_tpu_torch import TorchModel
     from dfine_tpu_torch.models.dfine import build_model
     from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dfine_tpu_torch.train.train_step import GRAPH_WARMUP
 
     _wide_kernels(res)
 
@@ -4818,7 +4907,10 @@ def phase_wide_tail(res):
     state, step = _train_setup(torch.bfloat16, model=model)
     batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    for _ in range(TRAIN_WARMUP):
+    capture_widths = {}  # the first call: its warm-up steps and the capture run the Python
+    with launch_widths(capture_widths):
+        step(state, batch, gen)
+    for _ in range(TRAIN_WARMUP - 1):
         step(state, batch, gen)
     sync()
     want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
@@ -4831,29 +4923,23 @@ def phase_wide_tail(res):
                    ("ms_deform_attn_bwd", WIDE_HEAD_DIM): WIDE_LAYERS,
                    ("rows_scatter_add", HEAD_DIM): narrow * len(M_SHAPES),
                    ("rows_scatter_add", WIDE_HEAD_DIM): WIDE_LAYERS * len(M_SHAPES)}
-    times, per_step, widths, metrics = [], [], [], []
-    total = {k: 0 for k in want}
+    times, per_step, metrics = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_STEPS):
-        acc = {}
-        with launch_widths(acc):
-            reset_launch_counts()  # the main path of this phase: one wide train step
-            t = time.perf_counter()
-            _, m = step(state, batch, gen)
-            sync()
-            times.append(time.perf_counter() - t)
-            counts = launch_counts()
-        per_step.append(counts)
-        widths.append(acc)
-        for k in total:
-            total[k] += counts[k]
+        reset_launch_counts()  # the main path of this phase: one replayed wide train step
+        t = time.perf_counter()
+        _, m = step(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t)
+        per_step.append(launch_counts())
         metrics.append({k: float(v) for k, v in m.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    res["wide_counts"] = total
-    res["wide_widths"] = {}
-    for acc in widths:
-        for k, n in acc.items():
-            res["wide_widths"][k] = res["wide_widths"].get(k, 0) + n
+    graph_launches = _graph_launches(step)
+    # what TRAIN_STEPS more replays ran on the card, counted in its device trace;
+    # by head dim, what the capture call launched from Python (its GRAPH_WARMUP
+    # warm-up steps and the capture)
+    res["wide_counts"] = replayed_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
+    res["wide_capture_widths"] = capture_widths
     p50, p90 = percentiles(times)
     finite = all(np.isfinite(list(m_.values())).all() for m_ in metrics)
     first_wide = DECODER_LAYERS - WIDE_LAYERS
@@ -4869,18 +4955,29 @@ def phase_wide_tail(res):
           "device_busy_ms": prof["device_busy_ms"],
           "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50,
           "metrics_first": metrics[0], "metrics_last": metrics[-1],
-          "launches_per_step": per_step[0], "launches_by_width_per_step": _by_width(widths[0]),
-          "launches_total": total, "launches_by_width_total": _by_width(res["wide_widths"]),
+          "graph_launches": graph_launches, "python_launches_per_replay": per_step[0],
+          "launches_in_profiled_replays": res["wide_counts"],
+          "capture_call_launches_by_width": _by_width(capture_widths),
           "wide_layer_params_moved": wide_moved, "losses_finite": finite})
     emit({"phase": "wide_tail_train_profile", "what": "one wide train step", **prof})
     failures = []
-    if any(c != want for c in per_step) or any(w != want_widths for w in widths) or not finite:
-        failures.append(f"counts {per_step[0]} (want {want}), by width {_by_width(widths[0])}, "
+    capture_want = {k: n * (GRAPH_WARMUP + 1) for k, n in want_widths.items()}
+    replays_want = {k: n * TRAIN_STEPS for k, n in want.items()}
+    if (graph_launches != want or res["wide_counts"] != replays_want
+            or any(any(c.values()) for c in per_step)
+            or capture_widths != capture_want or not finite):
+        failures.append(f"graph launches {graph_launches} (want {want}), in {TRAIN_STEPS} "
+                        f"profiled replays {res['wide_counts']} (want {replays_want}), Python "
+                        f"launches in a replay {per_step[0]}, by width in the capture call "
+                        f"{_by_width(capture_widths)} (want {_by_width(capture_want)}), "
                         f"finite {finite}")
     if wide_moved != len(list(wide_layer.parameters())):
         failures.append(f"only {wide_moved} tensors of the wide layer {first_wide} moved")
 
-    res["wide_in_situ"] = _wide_in_situ(state, step, batch, gen)
+    step.graphs.clear()  # the scatters' inputs come from an eager step
+    state.optimizer.zero_grad()
+    torch.cuda.empty_cache()
+    res["wide_in_situ"] = _wide_in_situ(state, step.eager, batch, gen)
     emit({"phase": "wide_tail_in_situ", "what": "the D = 64 scatter inputs of one wide train "
           "step: ms summed over the step, by CUDA events; library = index_add_ of the f32 "
           "payload", **res["wide_in_situ"]})
@@ -4964,15 +5061,17 @@ def phase_extra_level(res):
     state, step = _train_setup(torch.bfloat16, model=model, seg=True)
     batch = make_train_batch(TRAIN_BATCH, seed=7, device=DEV, masks=True)
     gen = torch.Generator(device=DEV).manual_seed(0)
-    step(state, batch, gen)  # warm-up
+    step(state, batch, gen)  # the capture
     p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
-    reset_launch_counts()  # the main path of this phase: one 4-level train step
+    reset_launch_counts()  # the main path of this phase: one replayed 4-level train step
     t = time.perf_counter()
     _, m = step(state, batch, gen)
     sync()
     step_ms = (time.perf_counter() - t) * 1e3
-    counts = launch_counts()
-    res["extra_counts"] = counts
+    python_launches = launch_counts()
+    counts = _graph_launches(step)
+    # one more replay's launches, counted in the card's device trace
+    res["extra_counts"] = replayed = replayed_launches(lambda: step(state, batch, gen), 1)
     moved = sum(int(not torch.equal(p0[k], v)) for k, v in model.named_parameters())
     want = {"ms_deform_attn_fwd": DECODER_LAYERS, "ms_deform_attn_bwd": DECODER_LAYERS,
             "rows_scatter_add": DECODER_LAYERS * EXTRA_LEVELS,
@@ -4980,12 +5079,16 @@ def phase_extra_level(res):
     finite = all(np.isfinite(float(v)) for v in m.values())
     extra_moved = not torch.equal(p0[f"decoder.input_proj.{EXTRA_LEVELS - 1}.conv.weight"],
                                   model.decoder.input_proj[EXTRA_LEVELS - 1].conv.weight)
-    out["train"] = {"batch": TRAIN_BATCH, "step_ms": step_ms, "launches": counts,
+    out["train"] = {"batch": TRAIN_BATCH, "step_ms": step_ms, "graph_launches": counts,
+                    "launches_in_a_profiled_replay": replayed,
+                    "python_launches_per_replay": python_launches,
                     "metrics": {k: float(v) for k, v in m.items()}, "params_moved": moved,
                     "n_params": len(p0), "extra_level_conv_moved": extra_moved}
-    if counts != want or not finite or not extra_moved or moved < 0.9 * len(p0):
-        failures.append(f"train: counts {counts} (want {want}), finite {finite}, "
-                        f"{moved} of {len(p0)} moved, extra level moved {extra_moved}")
+    if (counts != want or replayed != want or any(python_launches.values()) or not finite
+            or not extra_moved or moved < 0.9 * len(p0)):
+        failures.append(f"train: graph launches {counts} (want {want}), in a profiled replay "
+                        f"{replayed}, Python launches in the replay {python_launches}, finite "
+                        f"{finite}, {moved} of {len(p0)} moved, extra level moved {extra_moved}")
     del state, step, batch, model
     torch.cuda.empty_cache()
 
@@ -5032,15 +5135,11 @@ def phase_extra_level(res):
         raise AssertionError("extra_level: " + "; ".join(failures))
 
 
-def _tail_ms(opt, ema, model, ema_fn) -> dict:
-    """The optimizer tail (``opt.step()`` on the gradients in place, then
+def _tail_ms(tail) -> dict:
+    """The optimizer tail ``tail`` (a step on the gradients in place, then
     the EMA) timed by CUDA events, its device ms by the profiler, and its
     device activities a call (None where every profiler window was
     dropped)."""
-    def tail():
-        opt.step()
-        ema_fn(ema, model, max(opt.count, 1))
-
     acts = _kernels_of(tail)
     return {**timings("", tail, 20), "device_activities": len(acts) or None}
 
@@ -5058,7 +5157,9 @@ def phase_flat_optim(res):
 
     from dfine_tpu_torch.models.dfine import build_model
     from dfine_tpu_torch.train.flat_optim import ema_update_flat
-    from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer, ema_update, freeze_mask
+    from dfine_tpu_torch.train.optim import (EMA_BASE, OptimConfig, build_optimizer, ema_update,
+                                             freeze_mask)
+    from dfine_tpu_torch.train.train_step import write_rates
 
     cfg = OptimConfig(per_group_max_lr=True, b_accum_steps=2)
     model = build_model(SIZE, NUM_CLASSES, False, device=DEV, cfg_overrides=WIDE_OVERRIDES)
@@ -5111,13 +5212,25 @@ def phase_flat_optim(res):
     tails = {}
     one = OptimConfig(per_group_max_lr=True)
     group = build_optimizer(model, one)
-    tails["groups"] = _tail_ms(group, state.ema, model, ema_update)
+    momentum = torch.empty(2, device=DEV)
+
+    def group_tail():  # as the train step runs it: the rates written, AdamW, the EMA
+        write_rates(group, momentum, EMA_BASE)
+        group.step()
+        ema_update(state.ema, model, momentum)
+
+    tails["groups"] = _tail_ms(group_tail)
     flat = build_optimizer(flat_model, one, flat=True)
     flat.grad_flat.copy_(torch.cat([p.grad.reshape(-1) if p.grad is not None
                                     else torch.zeros(p.numel(), device=DEV)
                                     for p in model.parameters()]))
-    tails["flat"] = _tail_ms(flat, flat_ema, flat_model, ema_update_flat)
-    tails["groups_again"] = _tail_ms(group, state.ema, model, ema_update)
+
+    def flat_tail():
+        flat.step()
+        ema_update_flat(flat_ema, flat_model, max(flat.count, 1))
+
+    tails["flat"] = _tail_ms(flat_tail)
+    tails["groups_again"] = _tail_ms(group_tail)
     n_params = sum(p.numel() for p in model.parameters())
     res["flat_tails"] = tails
     emit({"phase": "flat_optim", "model": f"{SIZE} detect {IMG}px, layer_scale 2, "
@@ -5150,8 +5263,11 @@ def dp_launches(res, name: str) -> dict:
 
 
 def wide_launches(res, name: str) -> dict:
-    """``name``'s launches on path (A), the wide train run, by head dim."""
-    return {f"d{d}": res["wide_widths"].get((name, d), 0) for d in (HEAD_DIM, WIDE_HEAD_DIM)}
+    """``name``'s launches on path (A), the wide train run: in the profiled
+    replays, and by head dim in the capture call (launched from Python)."""
+    return {"profiled_replays": res["wide_counts"][name],
+            **{f"capture_call_d{d}": res["wide_capture_widths"].get((name, d), 0)
+               for d in (HEAD_DIM, WIDE_HEAD_DIM)}}
 
 
 def d64_fields(r: dict, library: bool = True) -> dict:
@@ -5166,7 +5282,8 @@ def kernel_line(res):
     bwd_main = (res.get("bwd_build") or {}).get("main") or {}
     # (name, pallas_call line, launch counts, path, kernel symbol)
     scatters = (("rows_scatter_add", 85, "train_counts",
-                 f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one backward)",
+                 f"train, {TRAIN_STEPS} replays at batch {TRAIN_BATCH}, counted in the "
+                 "profiler's device trace (ms: one backward)",
                  "rows_scatter_add_tile_kernel"),
                 ("rows_scatter_add_mxu", 173, "mxu_counts",
                  "train, one step with set_deform_bwd('mxu') (ms: one backward)",
@@ -5180,6 +5297,7 @@ def kernel_line(res):
          "replaces": "dfine_tpu/ops/deform_attn.py:72",  # XLA gather: no Pallas counterpart
          "launches": res["serving_counts"]["ms_deform_attn_fwd"],
          "train_launches": res["train_counts"]["ms_deform_attn_fwd"],
+         "train_graph_launches_per_step": res["train_graph_launches"]["ms_deform_attn_fwd"],
          "train_seg_launches": res["train_seg_counts"]["ms_deform_attn_fwd"],
          "train_l_launches": res["train_l_counts"]["ms_deform_attn_fwd"],
          "trainer_launches": res["trainer_counts"]["ms_deform_attn_fwd"],
@@ -5202,6 +5320,7 @@ def kernel_line(res):
         {"name": name, "route": "cuda", "source": "dfine_tpu_torch/csrc/rows_scatter_add_tile.cu",
          "replaces": f"dfine_tpu/ops/pallas/scatter_rows.py:{line}",
          "launches": res[counts][name], "max_abs_err": res[name]["max_abs_err"],
+         "train_graph_launches_per_step": res["train_graph_launches"][name],
          "train_seg_launches": res["train_seg_counts"][name],
          "train_l_launches": res["train_l_counts"][name],
          "trainer_launches": res["trainer_counts"][name],
@@ -5224,7 +5343,9 @@ def kernel_line(res):
          # the custom VJP's closed form (XLA device code): no Pallas counterpart
          "replaces": "dfine_tpu/ops/deform_attn.py:306",
          "launches": res["train_counts"]["ms_deform_attn_bwd"],
-         "path": f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one call at m@640, "
+         "train_graph_launches_per_step": res["train_graph_launches"]["ms_deform_attn_bwd"],
+         "path": f"train, {TRAIN_STEPS} replays at batch {TRAIN_BATCH}, counted in the "
+                 f"profiler's device trace (ms: one call at m@640, "
                  f"B = {GRAD_BATCH}, Q = {QUERIES}, D = {HEAD_DIM}, bf16 value, f32 payload)",
          "gradient_launches": res["gradient_counts"]["ms_deform_attn_bwd"],
          "train_seg_launches": res["train_seg_counts"]["ms_deform_attn_bwd"],
@@ -5257,13 +5378,15 @@ def kernel_line(res):
          "source": "dfine_tpu_torch/csrc/hungarian_lap.cu",
          "replaces": "dfine_tpu/ops/hungarian.py:48",  # XLA _solve_one: no Pallas counterpart
          "launches": res["train_counts"]["hungarian_lap"],
-         "path": f"train, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (ms: one step's S x B "
+         "train_graph_launches_per_step": res["train_graph_launches"]["hungarian_lap"],
+         "path": f"train, {TRAIN_STEPS} replays at batch {TRAIN_BATCH}, counted in the "
+                 f"profiler's device trace (ms: one step's S x B "
                  "problems)",
          "train_seg_launches": res["train_seg_counts"]["hungarian_lap"],
          "train_l_launches": res["train_l_counts"]["hungarian_lap"],
          "trainer_launches": res["trainer_counts"]["hungarian_lap"],
          "dp_launches": dp_launches(res, "hungarian_lap"),
-         "wide_launches": res["wide_counts"]["hungarian_lap"],
+         "wide_launches": wide_launches(res, "hungarian_lap"),
          "extra_level_launches": res["extra_counts"]["hungarian_lap"],
          "max_abs_err": res["hungarian"]["max_abs_err"], "ms": res["hungarian"]["ms"],
          "plain_ms": res["hungarian"]["plain_ms"], "bound_ms": res["hungarian"]["bound_ms"],

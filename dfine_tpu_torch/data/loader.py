@@ -30,6 +30,8 @@ import torch
 
 from .dataset import DatasetConfig, DetectionDataset
 
+MULTISCALE_OFFSETS = (-64, -32, 0, 32, 64)  # px a multiscale batch's size moves by
+
 
 def read_split_csv(path: Path) -> List[str]:
     names = []
@@ -116,7 +118,7 @@ class BatchIterator:
         base_hw = tuple(self.ds.cfg.img_size)
         for _ in range(len(self)):
             if self.ds.mode == "train" and rng.uniform() < self.multiscale_prob:
-                d = int(rng.choice([-64, -32, 0, 32, 64]))
+                d = int(rng.choice(MULTISCALE_OFFSETS))
                 yield (base_hw[0] + d, base_hw[1] + d)
             else:
                 yield base_hw

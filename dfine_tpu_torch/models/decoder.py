@@ -342,14 +342,23 @@ class DFINETransformer(nn.Module):
             self._const_cache[key] = torch.from_numpy(keep).to(device)
         return self._const_cache[key]
 
+    def draw_noise(self, labels: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> Optional[CdnNoise]:
+        """The CDN draws a train-mode forward on targets with these labels
+        [B, G] makes from ``generator`` when it is given none (None: this
+        decoder makes no CDN queries)."""
+        if self.num_denoising <= 0:
+            return None
+        return draw_cdn_noise(labels.shape[0], labels.shape[1], self.num_classes,
+                              self.num_denoising, self.label_noise_ratio, generator,
+                              device=labels.device)
+
     def _cdn(self, targets, dn_noise: Optional[CdnNoise], generator, dtype):
         """The CDN queries of a train step: (content [B, D, C], reference
         logits [B, D, 4], keep-mask [T, T], meta)."""
         labels, boxes, valid = targets["labels"], targets["boxes"], targets["valid"]
         if dn_noise is None:
-            dn_noise = draw_cdn_noise(labels.shape[0], labels.shape[1], self.num_classes,
-                                      self.num_denoising, self.label_noise_ratio, generator,
-                                      device=labels.device)
+            dn_noise = self.draw_noise(labels, generator)
         dn_cls, dn_bbox_unact, meta = build_cdn_queries(
             labels, boxes, valid, dn_noise, self.num_classes, self.num_denoising,
             self.label_noise_ratio, self.box_noise_scale)

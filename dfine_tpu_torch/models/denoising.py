@@ -12,7 +12,7 @@ so a caller can hand both frameworks the same noise.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,16 +102,22 @@ def build_cdn_queries(labels: torch.Tensor, boxes: torch.Tensor, valid: torch.Te
     return cls, inverse_sigmoid(box), DnMeta(num_group, reps * g, g)
 
 
+# dn_match_indices' index rows on a device, by (G, num_group, device): made
+# once, so that a train step copies nothing from the host
+_DN_ROWS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def dn_match_indices(valid: torch.Tensor, num_group: int):
     """Fixed DN matching: DN query ``g*2*G + j`` <-> target ``j`` of each
     group g. Returns (query_idx [B, num_group*G] int64, tgt_idx [..] int64,
     pair_valid [..] bool)."""
     b, g = valid.shape
-    j = np.arange(g)
-    q_idx = np.concatenate([gg * 2 * g + j for gg in range(num_group)])
-    t_idx = np.tile(j, num_group)
-
-    def rows(a):
-        return torch.from_numpy(a).to(valid.device)[None].expand(b, -1)
-
-    return rows(q_idx), rows(t_idx), valid.repeat(1, num_group)
+    key = (g, num_group, str(valid.device))
+    if key not in _DN_ROWS:
+        j = np.arange(g)
+        q_idx = np.concatenate([gg * 2 * g + j for gg in range(num_group)])
+        with torch.inference_mode(False):  # usable by autograd after serving
+            _DN_ROWS[key] = tuple(torch.from_numpy(a).to(valid.device)
+                                  for a in (q_idx, np.tile(j, num_group)))
+    q_rows, t_rows = _DN_ROWS[key]
+    return q_rows[None].expand(b, -1), t_rows[None].expand(b, -1), valid.repeat(1, num_group)

@@ -4,11 +4,15 @@ the bin targets of the FGL loss (``translate_gt``, ``bbox2distance``)."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from .boxes import box_xyxy_to_cxcywh
+
+# the bin values W(n) on a device, by (reg_max, up, reg_scale, device): made
+# once, so that a train step copies nothing from the host
+_BIN_VALUES: Dict[Tuple, torch.Tensor] = {}
 
 
 def weighting_function(reg_max: int, up: float, reg_scale: float) -> List[float]:
@@ -46,6 +50,16 @@ def integral(corners: torch.Tensor, project: torch.Tensor, reg_max: int) -> torc
     return (x * project.float()).sum(-1)
 
 
+def bin_values(reg_max: int, up: float, reg_scale: float, device) -> torch.Tensor:
+    """``weighting_function`` as an fp32 tensor on ``device``, cached."""
+    key = (reg_max, float(up), float(reg_scale), str(device))
+    if key not in _BIN_VALUES:
+        with torch.inference_mode(False):  # usable by autograd after serving
+            _BIN_VALUES[key] = torch.tensor(weighting_function(reg_max, up, reg_scale),
+                                            dtype=torch.float32, device=device)
+    return _BIN_VALUES[key]
+
+
 def translate_gt(gt: torch.Tensor, reg_max: int, reg_scale: float,
                  up: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Continuous edge offsets -> fractional bin indices. gt of any shape,
@@ -53,8 +67,7 @@ def translate_gt(gt: torch.Tensor, reg_max: int, reg_scale: float,
     below the first bin value the left bin 0 takes all the weight, at or
     above the last the index is reg_max - 0.1 and the right bin takes it."""
     gt = gt.reshape(-1)
-    fv = torch.tensor(weighting_function(reg_max, up, reg_scale), dtype=torch.float32,
-                      device=gt.device)
+    fv = bin_values(reg_max, up, reg_scale, gt.device)
     closest_left = (fv[None, :] <= gt[:, None]).sum(1).float() - 1.0  # last value <= gt
     valid = (closest_left >= 0) & (closest_left < reg_max)
     idx_safe = closest_left.clamp(0, reg_max - 1).long()

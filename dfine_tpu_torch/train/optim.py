@@ -15,8 +15,14 @@
   base_lr)`` (n/s/m), or with ``per_group_max_lr`` (l/x) the two backbone
   groups on ``onecycle(2 * backbone_lr)``. With ``b_accum_steps = k`` it
   steps as ``optax.MultiSteps``: on the mean of k micro-steps' gradients.
+  Each group's learning rate is a 0-d fp32 tensor on the parameters' device
+  that the host writes from the schedule (``write_lr``) before the update
+  (on the card AdamW is the fused, ``capturable`` one: a kernel a chunk of
+  parameters, the step counts on the device), so that a CUDA graph of the
+  step reads the schedule's value at each replay.
 - EMA with the warm-up momentum ``base * (1 - exp(-it / 2000))`` over the
-  parameters and the BatchNorm statistics.
+  parameters and the BatchNorm statistics, read from a device tensor that
+  the host writes before the update, as the learning rates.
 """
 
 from __future__ import annotations
@@ -124,15 +130,32 @@ class Optimizer:
                           "encdec_norm_bias": base, "rest": base}
         wd = {"backbone": cfg.weight_decay, "backbone_norm": 0.0, "encdec_norm_bias": 0.0,
               "rest": cfg.weight_decay}
-        self.adamw = torch.optim.AdamW(
-            [{"params": groups[g], "weight_decay": wd[g], "lr": self.schedules[g](0), "group": g}
-             for g in GROUPS if groups[g]], betas=cfg.betas, eps=1e-8)
         self.params = [p for g in GROUPS for p in groups[g]]
+        self.device = self.params[0].device if self.params else torch.device("cpu")
+        # AdamW reads a tensor learning rate on the card only when capturable;
+        # fused, its update is one kernel a chunk of parameters
+        self.capturable = self.device.type == "cuda"
+        self.lrs = [torch.tensor(self.schedules[g](0), dtype=torch.float32, device=self.device)
+                    for g in GROUPS if groups[g]]
+        self.adamw = torch.optim.AdamW(
+            [{"params": groups[g], "weight_decay": wd[g], "lr": lr, "group": g}
+             for g, lr in zip([g for g in GROUPS if groups[g]], self.lrs)],
+            betas=cfg.betas, eps=1e-8, capturable=self.capturable, fused=self.capturable or None)
         self.clip = cfg.clip_max_norm
         self.accum_steps = max(1, cfg.b_accum_steps)
         self.count = 0
         self.mini_step = 0
+        # bumped when load_state_dict replaces AdamW's state tensors, whose
+        # addresses a captured step holds
+        self.version = 0
         self._mean: Dict[nn.Parameter, torch.Tensor] = {}
+
+    def write_lr(self) -> None:
+        """Write each group's learning rate at ``count`` into its tensor (a
+        fill each, no copy from the host's memory): the rates ``step``
+        reads."""
+        for group, lr in zip(self.adamw.param_groups, self.lrs):
+            lr.fill_(self.schedules[group["group"]](self.count))
 
     def step(self) -> torch.Tensor:
         """One micro-step on this backward's gradients; returns their global
@@ -142,7 +165,8 @@ class Optimizer:
         mean by its global norm and steps AdamW; on the others the
         parameters stay as they are. A parameter without a gradient (frozen
         by ``requires_grad_(False)``, or unused) takes no update and no
-        weight decay."""
+        weight decay. AdamW reads the learning rates ``write_lr`` wrote last:
+        call it before each step."""
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = _global_norm(grads)
         if self.accum_steps > 1:
@@ -158,10 +182,7 @@ class Optimizer:
             clip_norm = _global_norm(grads)
         else:
             clip_norm = norm
-        torch._foreach_mul_(grads, self.clip / torch.maximum(clip_norm, torch.tensor(
-            self.clip, device=clip_norm.device)))
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedules[group["group"]](self.count)
+        torch._foreach_mul_(grads, self.clip / clip_norm.clamp_min(self.clip))
         self.adamw.step()
         self.count += 1
         return norm
@@ -195,10 +216,21 @@ class Optimizer:
                 "accum_mean": {index[p]: m for p, m in self._mean.items()}}
 
     def load_state_dict(self, sd: Dict) -> None:
+        """Load ``state_dict``'s output (float or tensor learning rates, from
+        any device): the groups keep this optimizer's rate tensors, which
+        ``step`` rewrites from the schedule, and on the card each AdamW
+        ``step`` count moves to the device, as ``capturable`` needs."""
         self.adamw.load_state_dict(sd["adamw"])
+        for group, lr in zip(self.adamw.param_groups, self.lrs):
+            group["lr"], group["capturable"] = lr, self.capturable
+            group["fused"] = self.capturable or None
+        if self.capturable:
+            for p, s in self.adamw.state.items():
+                s["step"] = s["step"].to(p.device, torch.float32)
         self.count, self.mini_step = sd["count"], sd["mini_step"]
         self._mean = {self.params[i]: m.to(self.params[i].device)
                       for i, m in sd["accum_mean"].items()}
+        self.version += 1
 
 
 def build_optimizer(model: nn.Module, cfg: OptimConfig, flat: bool = False):
@@ -220,19 +252,29 @@ def ema_momentum(iteration: int, base: float = EMA_BASE) -> float:
     return base * (1.0 - math.exp(-float(iteration) / 2000.0))
 
 
-@torch.no_grad()
-def ema_update(ema: nn.Module, model: nn.Module, iteration: int, base: float = EMA_BASE) -> None:
-    """ema = ema * m + (1 - m) * model over every floating parameter and
-    buffer; other buffers (BatchNorm's batch counter) are copied."""
+def write_ema_momentum(momentum: torch.Tensor, iteration: int, base: float = EMA_BASE) -> None:
+    """Write m = ``ema_momentum(iteration, base)`` and 1 - m into
+    ``momentum`` [2] (fills, no copy from the host's memory)."""
     m = ema_momentum(iteration, base)
+    momentum[0].fill_(m)
+    momentum[1].fill_(1.0 - m)
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, model: nn.Module, momentum: torch.Tensor) -> None:
+    """ema = ema * m + (1 - m) * model over every floating parameter and
+    buffer; other buffers (BatchNorm's batch counter) are copied.
+    ``momentum``: m and 1 - m as an fp32 tensor [2] on the EMA's device
+    (``write_ema_momentum``)."""
     src = dict(model.named_parameters())
     src.update(model.named_buffers())
     dst = dict(ema.named_parameters())
     dst.update(ema.named_buffers())
     floats = [k for k, t in dst.items() if t.is_floating_point()]
     e = [dst[k] for k in floats]
-    torch._foreach_mul_(e, m)
-    torch._foreach_add_(e, [src[k].to(dst[k].dtype) for k in floats], alpha=1.0 - m)
+    torch._foreach_mul_(e, momentum[0])
+    torch._foreach_add_(e, torch._foreach_mul([src[k].to(dst[k].dtype) for k in floats],
+                                              momentum[1]))
     for k, t in dst.items():
         if not t.is_floating_point():
             t.copy_(src[k])

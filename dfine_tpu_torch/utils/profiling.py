@@ -19,10 +19,14 @@ The spans: ``serve.frame`` (one ``BaseServing.__call__``) holding
 ``serve.pre``, ``serve.program`` (with ``serve.launch``, a CUDA graph's
 replay) and ``serve.post`` (with ``serve.d2h``, the results' copies to the
 host); ``train.step`` holding ``train.forward``, ``train.criterion`` (with
-``train.match``), ``train.backward``, ``train.optim`` and ``train.ema``.
-The counters: ``serve.d2h_copies`` (each result copied to the host) and
-``serve.host_copies`` (each frame the host made contiguous before its
-H2D).
+``train.match``), ``train.backward``, ``train.optim`` and ``train.ema`` on
+the eager step, and ``train.inputs`` (the CDN draw, the copies into the
+graph's inputs, the rates written) and ``train.replay`` on a step that
+replays its CUDA graph, where the phase spans run only while a graph is
+captured. The counters: ``serve.d2h_copies`` (each result copied to the
+host), ``serve.host_copies`` (each frame the host made contiguous before
+its H2D), ``train.graph_captures``, ``train.graph_replays`` and
+``train.eager_steps`` (the steps that ran without a graph).
 """
 
 from __future__ import annotations

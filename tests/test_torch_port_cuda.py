@@ -985,3 +985,274 @@ def test_core_backward_in_a_cuda_graph(cuda):
     finally:
         tda.set_deform_bwd("pallas")
     assert all(torch.equal(o, e) for o, e in zip(out, eager))
+
+
+# --------------------------------------------- the train step's CUDA graph --
+# n detect at 320 px (3 decoder layers, 2 levels, the CDN queries on), batch
+# 2, 10 target slots. A replayed step is held against the eager step, with a
+# second eager run as the control: each reading of the graph may differ from
+# the eager run's by at most GRAPH_SLACK times what the two eager runs differ
+# by (float atomics reorder sums between runs), plus a floor a reading, about
+# four times the most two eager fp32 runs read apart on the card (loss 9e-6,
+# grad norm 5.4e-4, first moment 1.7e-6, BatchNorm statistics 2e-6, the
+# change of the parameters and the EMA 0.022: AdamW's first steps move an
+# element by about lr whatever its gradient's size, so an element whose tiny
+# gradient changes sign between runs moves 2 lr the other way).
+
+GRAPH_SLACK = 4.0
+GRAPH_FLOOR = {torch.float32: {"loss": 1e-4, "grad_norm": 2e-3, "exp_avg": 1e-5, "bn": 1e-5,
+                               "params": 0.1, "ema": 0.1},
+               torch.bfloat16: {"loss": 1e-3, "grad_norm": 2e-2, "exp_avg": 1e-4, "bn": 1e-4,
+                                "params": 0.1, "ema": 0.1}}
+
+
+def _graph_batch(dev, seed, g=10, b=2, hw=320):
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform(0.05, 0.4, (b, g, 2))
+    cxcy = rng.uniform(wh / 2, 1 - wh / 2)
+    valid = np.arange(g)[None] < rng.integers(1, g + 1, b)[:, None]
+    targets = {"labels": torch.from_numpy(rng.integers(0, 5, (b, g))),
+               "boxes": torch.from_numpy(np.concatenate([cxcy, wh], -1).astype(np.float32)),
+               "valid": torch.from_numpy(valid)}
+    images = torch.from_numpy(rng.uniform(size=(b, 3, hw, hw)).astype(np.float32))
+    return {"images": images.to(dev), "targets": {k: v.to(dev) for k, v in targets.items()}}
+
+
+def _graph_state(base, dtype, optim=None, flat=False):
+    import copy
+
+    from dfine_tpu_torch.train.criterion import CriterionConfig
+    from dfine_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from dfine_tpu_torch.train.train_step import TrainState, make_train_step
+
+    model = copy.deepcopy(base)
+    # a short schedule: the learning rate changes at every step of the warm-up
+    cfg = optim or OptimConfig(epochs=1, steps_per_epoch=8, pct_start=0.5)
+    state = TrainState.create(model, build_optimizer(model, cfg, flat=flat))
+    return state, make_train_step(CriterionConfig(num_classes=5), compute_dtype=dtype,
+                                  ema_base=0.9)
+
+
+def _flat_of(tensors):
+    return torch.cat([t.detach().float().flatten() for t in tensors])
+
+
+def _steps(fn, state, n=3, seed=0, loaded_at=None):
+    """``n`` steps of ``fn`` on batches 0.. with a CUDA generator seeded
+    ``seed``; after each, the learning rates and the EMA are held to their
+    formulas (fp32). ``loaded_at``: the step before which the optimizer
+    loads its own state dict. Returns the readings."""
+    from dfine_tpu_torch.train.optim import ema_momentum
+
+    dev = state.model.decoder.enc_score_head.weight.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    opt, out = state.optimizer, {"loss": [], "grad_norm": []}
+    floats = [k for k, t in state.ema.state_dict().items() if t.is_floating_point()]
+    for i in range(n):
+        if i == loaded_at:
+            opt.load_state_dict(opt.state_dict())
+        ema_before = {k: state.ema.state_dict()[k].clone() for k in floats}
+        _, m = fn(state, _graph_batch(dev, 10 + i), gen)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        ema_sd = state.ema.state_dict()
+        if opt.mini_step:  # a micro-step of an accumulation: no update, no EMA
+            assert all(torch.equal(ema_sd[k], ema_before[k]) for k in floats)
+            continue
+        for group in opt.adamw.param_groups:
+            want = torch.tensor(opt.schedules[group["group"]](opt.count - 1), dtype=torch.float32)
+            assert float(group["lr"]) == float(want), (i, group["group"])
+        mom = ema_momentum(opt.count, 0.9)
+        model_sd = state.model.state_dict()
+        for k in floats:
+            want = ema_before[k] * mom + model_sd[k].float() * (1.0 - mom)
+            torch.testing.assert_close(ema_sd[k], want, rtol=1e-5, atol=1e-6, msg=k)
+        if "exp_avg" not in out:  # after the first update
+            out["exp_avg"] = _flat_of(opt.adamw.state[p]["exp_avg"] for p in opt.params
+                                      if p in opt.adamw.state)
+    sd = state.model.state_dict()
+    out["params"] = _flat_of(p for p in state.model.parameters())
+    out["bn"] = _flat_of(v for k, v in sd.items() if k.endswith(("running_mean", "running_var")))
+    out["ema"] = _flat_of(p for p in state.ema.parameters())
+    return out
+
+
+def _hold(graph, eager, control, dtype, init):
+    """Each reading of ``graph`` against ``eager``: at most GRAPH_SLACK x the
+    eager runs' own difference plus the floor (losses and norms relative;
+    the parameters and the EMA by their change from ``init``)."""
+    def gap(a, b, k):
+        if k in ("params", "ema"):
+            a, b = a - init, b - init
+        if isinstance(a, list):
+            return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    gaps = {k: (gap(graph[k], eager[k], k), gap(control[k], eager[k], k)) for k in eager}
+    print("graph / control gaps:", gaps)
+    for k, (ours, theirs) in gaps.items():
+        assert ours <= GRAPH_SLACK * theirs + GRAPH_FLOOR[dtype][k], (k, gaps)
+
+
+def _graph_base(dev):
+    from dfine_tpu_torch.models.dfine import build_model
+
+    torch.manual_seed(0)
+    return build_model("n", 5, False, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_graph_matches_eager(cuda, dtype):
+    """Three steps through ``step`` (one capture, three replays) against
+    three through ``step.eager`` on an identical state, and a second eager
+    run as the control: losses and grad norms at each step, AdamW's first
+    moment after step 1, the parameters, BatchNorm statistics and EMA after
+    step 3; on every run each step's learning rates are the schedule's and
+    the EMA follows its formula. The graph holds the step's kernel
+    launches (3 sampling, 3 backward, 6 scatters, 1 solver) and a replay
+    launches none from Python."""
+    from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dfine_tpu_torch.utils import profiling
+
+    base = _graph_base(cuda)
+    init = _flat_of(base.parameters())
+    runs = {}
+    for name in ("eager", "control", "graph"):
+        state, step = _graph_state(base, dtype)
+        profiling.drain()
+        with profiling.tracing(True):
+            runs[name] = _steps(step if name == "graph" else step.eager, state)
+            reset_launch_counts()
+            (step if name == "graph" else step.eager)(state, _graph_batch(cuda, 20),
+                                                      torch.Generator(device=cuda))
+            torch.cuda.synchronize()
+            python_launches = launch_counts()
+        counters = profiling.drain()["counters"]
+        if name == "graph":
+            assert counters.get("train.graph_captures") == 1
+            assert counters.get("train.graph_replays") == 4
+            assert "train.eager_steps" not in counters
+            (g,) = step.graphs.values()
+            assert g.replays == 4
+            assert g.launches == {"ms_deform_attn_fwd": 3, "ms_deform_attn_bwd": 3,
+                                  "rows_scatter_add": 6, "rows_scatter_add_mxu": 0,
+                                  "rows_scatter_add_tiled": 0, "hungarian_lap": 1}
+            assert not any(python_launches.values()), python_launches
+        else:
+            assert counters.get("train.eager_steps") == 4 and step.graphs == {}
+    _hold(runs["graph"], runs["eager"], runs["control"], dtype, init)
+
+
+def test_train_step_graph_captures_again_after_a_load(cuda):
+    """The optimizer's ``load_state_dict`` (new AdamW state tensors) before
+    step 3 drops the graph: that step captures again (2 captures, 3
+    replays) and the three steps still equal the eager ones, which load the
+    same way."""
+    from dfine_tpu_torch.utils import profiling
+
+    base = _graph_base(cuda)
+    init = _flat_of(base.parameters())
+    runs = {}
+    for name in ("eager", "control", "graph"):
+        state, step = _graph_state(base, torch.float32)
+        profiling.drain()
+        with profiling.tracing(True):
+            runs[name] = _steps(step if name == "graph" else step.eager, state, loaded_at=2)
+        counters = profiling.drain()["counters"]
+        if name == "graph":
+            assert (counters.get("train.graph_captures"), counters.get("train.graph_replays"),
+                    state.optimizer.version) == (2, 3, 1)
+    _hold(runs["graph"], runs["eager"], runs["control"], torch.float32, init)
+
+
+@pytest.mark.parametrize("kind", ["accumulation", "flat"])
+def test_train_step_falls_back_to_eager(cuda, kind):
+    """An optimizer that accumulates 2 micro-steps and the flat optimizer
+    take the eager body: every call counts ``train.eager_steps``, nothing
+    is captured, and the results equal ``step.eager``'s within what two
+    eager runs differ by."""
+    from dfine_tpu_torch.train.optim import OptimConfig
+    from dfine_tpu_torch.utils import profiling
+
+    base = _graph_base(cuda)
+    init = _flat_of(base.parameters())
+    optim = OptimConfig(epochs=1, steps_per_epoch=8, pct_start=0.5,
+                        b_accum_steps=2 if kind == "accumulation" else 1)
+    n = 4 if kind == "accumulation" else 3
+    runs = {}
+    for name in ("eager", "control", "step"):
+        state, step = _graph_state(base, torch.float32, optim=optim, flat=kind == "flat")
+        profiling.drain()
+        with profiling.tracing(True):
+            if kind == "flat":  # the flat EMA is one lerp_: its own formula, not held here
+                runs[name] = _flat_steps(step if name == "step" else step.eager, state, n)
+            else:
+                runs[name] = _steps(step if name == "step" else step.eager, state, n)
+        counters = profiling.drain()["counters"]
+        assert counters.get("train.eager_steps") == n and "train.graph_captures" not in counters
+        assert step.graphs == {}
+    _hold(runs["step"], runs["eager"], runs["control"], torch.float32, init)
+
+
+def _flat_steps(fn, state, n):
+    dev = state.model.decoder.enc_score_head.weight.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"loss": [], "grad_norm": []}
+    for i in range(n):
+        _, m = fn(state, _graph_batch(dev, 10 + i), gen)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["params"] = _flat_of(state.model.parameters())
+    out["ema"] = _flat_of(state.ema.parameters())
+    return out
+
+
+def test_train_step_replay_does_not_sync(cuda):
+    """After the capture, a replayed step (the CDN draw from a CUDA
+    generator, the copies into the graph's inputs, the rates written, the
+    replay, the metrics' copies) runs under sync debug mode "error"."""
+    base = _graph_base(cuda)
+    state, step = _graph_state(base, torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    step(state, _graph_batch(cuda, 1), gen)
+    batch = _graph_batch(cuda, 2)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, m = step(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert np.isfinite(float(m["loss"])) and len(step.graphs) == 1
+
+
+def test_train_step_keeps_a_bounded_number_of_graphs(cuda):
+    """The loader's multiscale traffic: batches at each of its image sizes
+    (320 px moved by ``MULTISCALE_OFFSETS``) in a drawn order, twice over,
+    each size captured on its first batch (a capture call replays its graph
+    once, as its step) and replayed on its second, no step eager; then a
+    batch of a further signature (more target slots) runs eagerly, and the
+    base size still replays its own graph."""
+    from dfine_tpu_torch.data.loader import MULTISCALE_OFFSETS
+    from dfine_tpu_torch.train.train_step import MAX_GRAPHS
+    from dfine_tpu_torch.utils import profiling
+
+    state, step = _graph_state(_graph_base(cuda), torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sizes = [320 + d for d in MULTISCALE_OFFSETS]
+    order = [sizes[i] for i in np.random.default_rng(0).permutation(len(sizes))] * 2
+    profiling.drain()
+    with profiling.tracing(True):
+        for i, hw in enumerate(order):
+            _, m = step(state, _graph_batch(cuda, i, hw=hw), gen)
+            assert np.isfinite(float(m["loss"])), hw
+        counters = profiling.counters()
+        assert (counters.get("train.graph_captures"), counters.get("train.graph_replays"),
+                counters.get("train.eager_steps")) == (MAX_GRAPHS, 2 * MAX_GRAPHS, None)
+        for batch in (_graph_batch(cuda, 99, g=12), _graph_batch(cuda, 100)):
+            _, m = step(state, batch, gen)
+            assert np.isfinite(float(m["loss"]))
+    counters = profiling.drain()["counters"]
+    assert (counters.get("train.graph_captures"), counters.get("train.graph_replays"),
+            counters.get("train.eager_steps")) == (MAX_GRAPHS, 2 * MAX_GRAPHS + 1, 1)
+    assert len(step.graphs) == MAX_GRAPHS and state.step == 2 * MAX_GRAPHS + 2

@@ -173,6 +173,7 @@ def test_flat_optimizer_matches_the_group_optimizer(variables):
         view = {k: v * mask.get(k, True) for k, v in view.items()}
         _set_grads(port_a, opt_a, view)
         _set_grads(port_b, opt_b, view)
+        opt_a.write_lr()  # the group optimizer's rates, written as the train step writes them
         na, nb = opt_a.step(), opt_b.step()
         np.testing.assert_allclose(float(nb), float(na), rtol=1e-5)
         if opt_a.mini_step:

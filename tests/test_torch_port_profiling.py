@@ -71,7 +71,10 @@ def test_off_records_nothing_and_opens_no_range(monkeypatch, backend, train):
     assert not any(k.startswith(("serve.", "train.", "profiling.")) for k in out["counters"])
 
 
-def test_serving_span_tree_and_counters(backend, caplog):
+def test_serving_span_tree_and_counters(backend, caplog, monkeypatch):
+    # the package's console logger stops propagation once the trainer has
+    # made it (utils/logging.py): caplog reads the records at the root
+    monkeypatch.setattr(logging.getLogger("dfine_tpu_torch"), "propagate", True)
     with profiling.tracing(True):
         backend(_frame())
     spans = profiling.drain()

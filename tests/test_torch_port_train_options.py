@@ -340,6 +340,7 @@ def test_group_schedules_match_optax(per_group):
         for p in opt.params:
             p.grad = torch.full_like(p, 1e-3)
         before = probe.detach().clone()
+        opt.write_lr()
         opt.step()
         assert opt.mini_step == (micro + 1) % 2
         assert torch.equal(before, probe) == bool(opt.mini_step)
