@@ -126,6 +126,12 @@ def cleanup_masks(masks: torch.Tensor, boxes_xyxy: torch.Tensor) -> torch.Tensor
     return masks * inside.to(masks.dtype)
 
 
+def _mask_h2d(a: np.ndarray, device) -> torch.Tensor:
+    """A host-made array copied to the masks' device, counted as ``serve.mask_h2d``."""
+    count("serve.mask_h2d")
+    return torch.from_numpy(a).to(device)
+
+
 def postprocess_predictions(
     decoded: Dict[str, torch.Tensor],
     proc_hw: Tuple[int, int],
@@ -166,18 +172,20 @@ def postprocess_predictions(
             "all_scores": scores[b],
         }
         if masks is not None:
-            km = masks.shape[1]
-            keep_t = torch.from_numpy(keep[:km]).to(masks.device)
-            mk = masks_to_original(masks[b][keep_t], proc_hw, (oh, ow), keep_ratio, pad_tl)
-            binary = (mk >= conf_thresh).to(torch.uint8)
-            n_kept = int(keep.sum())
-            if binary.shape[0] < n_kept:
-                pad = binary.new_zeros((n_kept - binary.shape[0], oh, ow))
-                binary = torch.cat([binary, pad], 0)
-            box_t = torch.from_numpy(out["boxes"]).to(masks.device)
-            kept = cleanup_masks(binary, box_t)
+            with span("serve.masks"):
+                km = masks.shape[1]
+                keep_t = _mask_h2d(keep[:km], masks.device)
+                mk = masks_to_original(masks[b][keep_t], proc_hw, (oh, ow), keep_ratio, pad_tl)
+                binary = (mk >= conf_thresh).to(torch.uint8)
+                n_kept = int(keep.sum())
+                if binary.shape[0] < n_kept:
+                    pad = binary.new_zeros((n_kept - binary.shape[0], oh, ow))
+                    binary = torch.cat([binary, pad], 0)
+                box_t = _mask_h2d(out["boxes"], masks.device)
+                kept = cleanup_masks(binary, box_t)
             with span("serve.d2h"):
                 out["masks"] = kept.cpu().numpy()
             count("serve.d2h_copies")
+            count("serve.mask_bytes", out["masks"].nbytes)
         results.append(out)
     return results

@@ -1,6 +1,8 @@
 """The port's backbone, encoder and whole model (eval, fp32) against the JAX
-package at sizes n and s, 320 px, with every weight re-drawn from a numpy
-seed and carried over by the weight bridge."""
+package at sizes n and s, 320 px, and x, 160 px (the only size with a
+conv + BatchNorm ``input_proj``, B5 and AIFI at head dim 48; the smaller
+image keeps its JAX compile short), with every weight re-drawn from a
+numpy seed and carried over by the weight bridge."""
 
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import jax.numpy as jnp
 from test_torch_port_helpers import (align_by_box, jax_template_shapes, port_model_from,
                                      random_variables)
 
-IMG = 320
+IMG = {"n": 320, "s": 320, "x": 160}
 NUM_CLASSES = 5
 _CACHE = {}
 
@@ -20,7 +22,7 @@ _CACHE = {}
 def _setup(size, mask_head):
     key = (size, mask_head)
     if key not in _CACHE:
-        jmodel, shapes = jax_template_shapes(size, NUM_CLASSES, mask_head, IMG)
+        jmodel, shapes = jax_template_shapes(size, NUM_CLASSES, mask_head, IMG[size])
         variables = random_variables(shapes, seed=17)
         port = port_model_from(variables, size, NUM_CLASSES, mask_head)
         _CACHE[key] = (jmodel, variables, port)
@@ -33,8 +35,8 @@ def _drop_cache():
     _CACHE.clear()
 
 
-def _image(seed):
-    return np.random.default_rng(seed).uniform(size=(1, IMG, IMG, 3)).astype(np.float32)
+def _image(seed, img):
+    return np.random.default_rng(seed).uniform(size=(1, img, img, 3)).astype(np.float32)
 
 
 def _nchw(x):
@@ -45,7 +47,7 @@ def _sub_vars(variables, name):
     return {"params": variables["params"][name], "batch_stats": variables["batch_stats"][name]}
 
 
-@pytest.mark.parametrize("size", ["n", "s"])
+@pytest.mark.parametrize("size", ["n", "s", "x"])
 def test_backbone_and_encoder_match_jax(size):
     """Features at atol 1e-4, rtol 1e-3 (test_torch_parity.py:107-109)."""
     from dfine_tpu.configs import model_config
@@ -55,7 +57,7 @@ def test_backbone_and_encoder_match_jax(size):
     _, variables, port = _setup(size, False)
     cfg = model_config(size)
     bcfg, ecfg = cfg["backbone"], cfg["encoder"]
-    x = _image(1)
+    x = _image(1, IMG[size])
     bb = HGNetv2(name_=bcfg["name"], use_lab=bcfg["use_lab"], return_idx=tuple(bcfg["return_idx"]))
     feats_j = jax.jit(lambda v, x: bb.apply(v, x, False))(_sub_vars(variables, "backbone"),
                                                           jnp.asarray(x))
@@ -80,12 +82,13 @@ def test_backbone_and_encoder_match_jax(size):
                                    atol=1e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("size,mask_head", [("n", False), ("n", True), ("s", False), ("s", True)])
+@pytest.mark.parametrize("size,mask_head", [("n", False), ("n", True), ("s", False), ("s", True),
+                                            ("x", True)])
 def test_model_matches_jax(size, mask_head):
     """Queries aligned by box (>= 98% matched 1:1); matched boxes atol 5e-4,
     logits atol 2e-3 (test_torch_parity.py:80-83); masks atol 1e-3."""
     jmodel, variables, port = _setup(size, mask_head)
-    x = _image(2)
+    x = _image(2, IMG[size])
     ref = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(variables, jnp.asarray(x))
     with torch.no_grad():
         ours = port(_nchw(x))

@@ -100,6 +100,44 @@ def test_serving_span_tree_and_counters(backend, caplog, monkeypatch):
     assert sum("not C-contiguous" in r.getMessage() for r in caplog.records) == 1
 
 
+@pytest.fixture(scope="module")
+def seg_backend():
+    from dfine_tpu_torch import AOTModel
+
+    return AOTModel("n", None, 5, 320, 320, conf_thresh=0.0, half=False, device="cpu",
+                    enable_mask_head=True, max_batch_size=1, cfg_overrides=SMALL)
+
+
+def test_seg_serving_mask_span_and_counters(seg_backend):
+    frames = [_frame(), np.ascontiguousarray(_frame()[::-1])]
+    # a fresh model scores near 0.01: keep the frame's best few
+    seg_backend.conf_thresh = float(np.sort(seg_backend(frames[0])[0]["scores"])[-5])
+    profiling.drain()
+    with profiling.tracing(True):
+        outs = [seg_backend(f)[0] for f in frames]
+    got = profiling.drain()
+    kept = [len(o["scores"]) for o in outs]
+    assert all(kept) and all(o["masks"].shape == (k, 180, 320) for o, k in zip(outs, kept))
+    masks = [s for s in got["spans"] if s.name == "serve.masks"]
+    assert len(masks) == 2 and {s.parent for s in masks} == {"serve.post"}
+    posts = {s.root: s for s in got["spans"] if s.name == "serve.post"}
+    assert all(posts[m.root].start_ns <= m.start_ns <= m.end_ns <= posts[m.root].end_ns
+               for m in masks)
+    # the masks' copy to the host stays a serve.d2h of serve.post, after serve.masks
+    d2h = [s for s in got["spans"] if s.name == "serve.d2h"]
+    assert len(d2h) == 4 and {s.parent for s in d2h} == {"serve.post"}
+    assert all(any(d.root == m.root and d.start_ns >= m.end_ns for d in d2h) for m in masks)
+    c = got["counters"]
+    assert c["serve.mask_bytes"] == sum(o["masks"].nbytes for o in outs) == sum(kept) * 180 * 320
+    assert c["serve.mask_h2d"] == 2 * len(frames)
+    assert c["serve.d2h_copies"] == 4 * len(frames)
+
+    seg_backend(frames[0])
+    off = profiling.drain()
+    assert off["spans"] == []
+    assert not any(k.startswith("serve.") for k in off["counters"])
+
+
 def test_train_span_tree_on_the_profilers_clock(train):
     from torch.profiler import ProfilerActivity, profile
 
