@@ -94,9 +94,9 @@ re-drawn from seed 1):
     deformable-attention kernel against its plain version on the inputs that
     serving the 1080x1920 and 1200x1600 frames in rect mode gives it;
     ``mask2poly`` (no cv2) on served masks;
-14. deploy: ``convert_to_deploy`` fused against unfused at fp32 on the card
-    (phase_model's rule), and bf16 serving of both with device busy ms and
-    activities a frame;
+14. deploy: ``convert_to_deploy`` (fused) and the serving fold (folded)
+    against unfused at fp32 on the card (phase_model's rule), and bf16
+    serving of all three with device busy ms and activities a frame;
 15. int8: ``w8a8`` and ``w8a16`` at fp32, card against the same converted
     model on the CPU (logits and masks within twice the CPU model's own
     reaction to a 1e-6 input perturbation; the card in the other mode must
@@ -172,7 +172,9 @@ The apps, on the trainer's experiment (``phase_apps``):
     every kernel (it must end at ``count_int8 = (0, n)`` with the fp F1),
     and with ``int8_max_drop=1`` (every kernel stays int8); ``Int8Model``
     on that run's ``export_int8.npz`` against its eval (the same int8
-    modules, integers and scales, at least one of them, and the same F1);
+    modules, integers and scales, at least one of them, and the same F1 as
+    that run's int8 model under the serving fold, which ``Int8Model``
+    serves);
     ``apps.test_batching``'s sweep at batch 1-32 (img/s, ms an image, graph
     pool bytes), with the first sampling call of each batch size held
     against the plain version and the batch-32 graph's decode against the
@@ -333,7 +335,8 @@ GRAPH_ATOL = 1e-5
 EXPORT_SCORE_ATOL = 1e-3
 # the trainer entry point: a synthetic segment dataset of 720p PNG frames, m
 # det+seg at 640 px, batch 8, bf16, 2 epochs then a resumed third; serving
-# best (fp32) against the trainer's eval of the same input: the same weights
+# best (fp32) against the trainer's eval model under the same serving fold
+# (``fold_for_serving``) on the same input: the same weights, folded tensors
 # and kernels on the same tensor, so expected equal
 TRAINER_FRAMES, TRAINER_TRAIN_FRAMES, TRAINER_HW, TRAINER_CLASSES = 40, 32, (720, 1280), 3
 TRAINER_BATCH, TRAINER_EPOCHS = 8, 2
@@ -2868,24 +2871,38 @@ def _served_profile(model, frame):
 
 
 def phase_deploy(res):
-    """convert_to_deploy: fp32 fused against unfused on the card; bf16
-    serving of both, with device busy ms and activities a frame."""
+    """The two BatchNorm folds against the unfused model: fp32 on the card
+    by phase_model's rule, ``convert_to_deploy`` ("fused") and the serving
+    fold ("folded", ``fold_for_serving``); bf16 serving of the unfused
+    model (a ``TorchModel`` that serves the model as built), of the
+    folded one (``TorchModel``'s default) and of the fused one
+    (``deploy=True``), with device busy ms and activities a frame."""
     import torch
 
     from dfine_tpu_torch import TorchModel
-    from dfine_tpu_torch.infer.fuse import convert_to_deploy
+    from dfine_tpu_torch.infer.fuse import convert_to_deploy, fold_for_serving
+
+    class UnfusedModel(TorchModel):
+        def _convert(self, model):
+            return model
 
     pth, frames = _serving_weights(res), _serve_frames()[:4]
     cpu = res["parity_model"]
     unfused = copy.deepcopy(cpu).to(DEV)
-    fused = convert_to_deploy(copy.deepcopy(cpu)).to(DEV)
     x = torch.from_numpy(np.random.default_rng(2).uniform(size=(1, 3, IMG, IMG)).astype(np.float32))
-    parity = _card_vs_cpu(unfused, fused, x.to(DEV), DEPLOY_ATOL, "deploy fp32 fused vs unfused")
-    del unfused, fused
+    parity = {}
+    for tag, fold in (("fused", convert_to_deploy),
+                      ("folded", lambda m: fold_for_serving(m, torch.float32))):
+        model = fold(copy.deepcopy(cpu)).to(DEV)
+        parity[tag] = _card_vs_cpu(unfused, model, x.to(DEV), DEPLOY_ATOL,
+                                   f"deploy fp32 {tag} vs unfused")
+        del model
+    del unfused
     out = {}
-    for tag, deploy in (("unfused", False), ("fused", True)):
-        model = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
-                           enable_mask_head=True, device=DEV, deploy=deploy)
+    for tag, cls, deploy in (("unfused", UnfusedModel, False), ("folded", TorchModel, False),
+                             ("fused", TorchModel, True)):
+        model = cls(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
+                    enable_mask_head=True, device=DEV, deploy=deploy)
         out[tag] = {**_serve_timed(model, frames, MODE_FRAMES), **_served_profile(model, frames[0])}
         del model
     emit({"phase": "deploy", "parity_fp32": parity, "bf16_serving": out})
@@ -3336,7 +3353,8 @@ def phase_trainer(res):
     on a synthetic segment dataset (TRAINER_FRAMES PNG frames at 720x1280,
     mosaic on in epoch 0), then a fresh trainer resumed from ``last`` for a
     third epoch, then ``TorchModel`` serving ``best``, held against the
-    trainer's own eval of the same input; one sampling call of the trainer's
+    trainer's own eval model under the same serving fold on the same input
+    (and its gap to the unfused eval printed); one sampling call of the trainer's
     eval and one scatter call of its step held against their plain
     versions."""
     import tempfile
@@ -3346,6 +3364,7 @@ def phase_trainer(res):
     from dfine_tpu_torch import TorchModel
     from dfine_tpu_torch.config import load_config
     from dfine_tpu_torch.data.image_io import decoder_name, read_image
+    from dfine_tpu_torch.infer.fuse import fold_for_serving
     from dfine_tpu_torch.ops.kernels import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
     from dfine_tpu_torch.ops.kernels import scatter_rows as sr
     from dfine_tpu_torch.postprocess import postprocess_predictions
@@ -3417,7 +3436,8 @@ def phase_trainer(res):
                         f"{resumed.start_epoch}; steps {first['steps']} + {second['steps']}; "
                         f"last step {end['step']}")
 
-    # TorchModel serving best, against the trainer's eval of the same input (fp32)
+    # TorchModel serving best, against the trainer's eval model under the
+    # same serving fold, on the same input (fp32)
     frame = read_image(os.path.join(ds, "images", "frame%03d.png" % TRAINER_TRAIN_FRAMES))
     served = TorchModel(SIZE, os.path.join(run_dir, "best.ckpt"), TRAINER_CLASSES, IMG, IMG,
                         conf_thresh=0.0, half=False, enable_mask_head=True, device=DEV)
@@ -3426,11 +3446,17 @@ def phase_trainer(res):
     ours = served(frame[..., ::-1])[0]
     x, proc, orig, _ = served._prepare_inputs(frame[..., ::-1])
     resumed.dtype = torch.float32
-    ref = postprocess_predictions(resumed.decode(x), proc[0], orig, 0.0, False)[0]
-    serve_gap = {"scores": float(np.abs(ours["scores"] - ref["scores"]).max()),
-                 "boxes_px": float(np.abs(ours["boxes"] - ref["boxes"]).max()),
-                 "labels_equal": bool(np.array_equal(ours["labels"], ref["labels"])),
-                 "mask_pixels_differing": float((ours["masks"] != ref["masks"]).mean())}
+    folded = fold_for_serving(copy.deepcopy(resumed.eval_model()), torch.float32)
+
+    def gaps(model):
+        ref = postprocess_predictions(resumed.decode(x, model), proc[0], orig, 0.0, False)[0]
+        return {"scores": float(np.abs(ours["scores"] - ref["scores"]).max()),
+                "boxes_px": float(np.abs(ours["boxes"] - ref["boxes"]).max()),
+                "labels_equal": bool(np.array_equal(ours["labels"], ref["labels"])),
+                "mask_pixels_differing": float((ours["masks"] != ref["masks"]).mean())}
+
+    serve_gap, unfused_gap = gaps(folded), gaps(None)  # the second one printed only
+    del folded
     if not (same_weights and serve_gap["scores"] <= SERVE_SCORE_ATOL
             and serve_gap["boxes_px"] <= SERVE_BOX_ATOL_PX and serve_gap["labels_equal"]
             and serve_gap["mask_pixels_differing"] <= SERVE_MASK_SHARE):
@@ -3453,6 +3479,7 @@ def phase_trainer(res):
                         if k in ("loader_busy", "epoch_tail", "step_ms", "loader_wait_ms",
                                  "loader_busy_by_step")}},
           "serving_best": {**serve_gap, "same_weights": same_weights,
+                           "vs_unfused_eval_unaligned": unfused_gap,
                            "atol": {"scores": SERVE_SCORE_ATOL, "boxes_px": SERVE_BOX_ATOL_PX,
                                     "mask_share": SERVE_MASK_SHARE}},
           "captured_vs_plain": {"ms_deform_attn_fwd": {"levels": shapes, "max_abs_err": deform_err,
@@ -4329,6 +4356,7 @@ def phase_apps(res):
     from dfine_tpu_torch.data.loader import Loader
     from dfine_tpu_torch.data.labels import parse_yolo_label_file, polygons_to_masks
     from dfine_tpu_torch.etl import coco_yolo, mask_tools, preprocess, split
+    from dfine_tpu_torch.infer.fuse import fold_for_serving
     from dfine_tpu_torch.infer.int8 import Int8Linear, count_int8
     from dfine_tpu_torch.ops.kernels.deform_attn import ms_deform_attn_fwd, ms_deform_attn_fwd_plain
     from dfine_tpu_torch.train.trainer import Trainer
@@ -4551,8 +4579,8 @@ def phase_apps(res):
                             f"{gated['count_int8']}; all int8 {whole['count_int8']}")
 
         # Int8Model serving the all-int8 run's export_int8.npz: the modules
-        # that run evaluated, integers and scales, and its F1 through the
-        # same eval
+        # that run evaluated, integers and scales, and through the same eval
+        # the F1 of that run's int8 model under the same serving fold
         t0 = time.perf_counter()
         with counted(launches, "int8_model"):
             served = Int8Model(SIZE, str(whole["path"]), TRAINER_CLASSES, IMG, IMG,
@@ -4564,18 +4592,22 @@ def phase_apps(res):
             torch.equal(a, b) for n in last
             for a, b in zip(last[n].int8_weight(), ours[n].int8_weight()))
         served_count = count_int8(served.model)
-        emit({"phase": "apps", "app": "Int8Model", "seconds": time.perf_counter() - t0,
+        int8_s = time.perf_counter() - t0
+        folded = fold_for_serving(copy.deepcopy(whole["model"]), torch.float32)
+        folded_f1 = tr.evaluate("val", model=folded.eval())["f1"]
+        del folded
+        emit({"phase": "apps", "app": "Int8Model", "seconds": int8_s,
               "npz_mb": os.path.getsize(whole["path"]) / 2**20,
               "count_int8": served_count, "quant_count_int8": whole["count_int8"],
-              "same_int8_modules": same, "f1": f1, "quant_f1": whole["int8_f1"],
-              "launches": launches["int8_model"]})
+              "same_int8_modules": same, "f1": f1, "quant_folded_f1": folded_f1,
+              "quant_f1": whole["int8_f1"], "launches": launches["int8_model"]})
         # the smoke check at load, then one eval batch
         _want_deform(launches["int8_model"], DECODER_LAYERS * (1 + -(-len(val_names) //
                                                                      TRAINER_BATCH)), "Int8Model")
         if (not same or not served_count[0] or served_count != tuple(whole["count_int8"])
-                or f1 != whole["int8_f1"]):
+                or f1 != folded_f1):
             failures.append(f"Int8Model: {served_count} int8, same modules {same}, "
-                            f"F1 {f1} vs {whole['int8_f1']}")
+                            f"F1 {f1} vs {folded_f1} (folded quant model)")
         del served, last, ours, tr
         for out in quants.values():
             del out["model"]

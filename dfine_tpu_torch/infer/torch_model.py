@@ -1,6 +1,7 @@
 """Eager PyTorch serving backends (port of ``dfine_tpu/infer/jax_model.py``):
 model forward plus the NMS-free top-k decode on the card. ``TorchModel``
-computes in bf16 or fp32, optionally on the deploy-fused model;
+computes in bf16 or fp32 on the BatchNorm-folded model (``infer/fuse.py``:
+the serving fold, or with ``deploy=True`` the deploy rewrite);
 ``Int8Model`` is ``TorchModel`` on the int8-converted model."""
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from ..models.dfine import DFINE, build_model, set_compute_dtype
 from ..ops.kernels import check_kernel_limits
 from ..postprocess import topk_decode
 from .base import BaseServing, load_weights
-from .fuse import convert_to_deploy
+from .fuse import convert_to_deploy, fold_for_serving
 from .int8 import convert_int8, count_int8
 
 TOP_MASKS = 100  # masks kept for the strongest queries, in bf16 (jax_model.py:28-29)
@@ -34,8 +35,11 @@ def decode(model: DFINE, images: torch.Tensor, num_top: int,
 
 
 class TorchModel(BaseServing):
-    """``deploy=True`` serves the deploy-fused model (``infer/fuse.py``),
-    as ``export_model(deploy=True)`` does."""
+    """Serves the model with every eval conv + BatchNorm pair folded into
+    one conv (``infer/fuse.py::fold_for_serving``): ``self.model``'s state
+    dict is the unfused model's, and ``self.model.load_state_dict`` refolds.
+    ``deploy=True`` serves the deploy rewrite instead, as
+    ``export_model(deploy=True)`` does (its state dict's keys differ)."""
 
     def __init__(self, *args, deploy: bool = False, **kwargs):
         self.deploy = deploy
@@ -43,7 +47,9 @@ class TorchModel(BaseServing):
 
     def _convert(self, model: DFINE) -> DFINE:
         """The fp32 model with its weights -> what this backend serves."""
-        return convert_to_deploy(model) if self.deploy else model
+        if self.deploy:
+            return convert_to_deploy(model)
+        return fold_for_serving(model, torch.bfloat16 if self.half else torch.float32)
 
     def _build(self, model_path: Optional[str]) -> None:
         dtype = torch.bfloat16 if self.half else torch.float32

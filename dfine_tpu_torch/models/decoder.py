@@ -41,7 +41,8 @@ from ..ops.boxes import inverse_sigmoid
 from ..ops.deform_attn import ms_deform_attn
 from ..ops.fdr import distance2bbox, integral, weighting_function
 from .denoising import CdnNoise, build_cdn_queries, dn_attn_mask, draw_cdn_noise
-from .layers import MLP, BatchNorm2d, LayerNorm, MultiHeadSelfAttention, get_activation
+from .layers import (MLP, BatchNorm2d, ConvNorm, LayerNorm, MultiHeadSelfAttention,
+                     get_activation)
 
 
 def bias_init_with_prob(prior: float) -> float:
@@ -224,6 +225,12 @@ class MaskPixelDecoder(nn.Module):
         self.upconv = nn.ConvTranspose2d(out_ch, out_ch, 2, stride=2, bias=False)
         self.bn1 = BatchNorm2d(out_ch)
 
+    def bn_pairs(self) -> Tuple[Tuple[str, str], ...]:
+        """(conv, BatchNorm) submodule names (``layers.ConvBN.bn_pairs``);
+        ``upconv`` is a ``ConvTranspose2d``."""
+        return tuple((f"lateral.{i}", f"bn.{i}") for i in range(len(self.lateral))) + \
+            (("enc_proj", "enc_bn"), ("upconv", "bn1"))
+
     def forward(self, feats: List[torch.Tensor], enc_feat: torch.Tensor) -> torch.Tensor:
         x = self.bn[0](self.lateral[0](feats[0]))
         size = x.shape[-2:]
@@ -267,13 +274,13 @@ class DFINETransformer(nn.Module):
         self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
 
         self.input_proj = nn.ModuleList(
-            nn.Identity() if c == hd else nn.Sequential(OrderedDict(
-                conv=nn.Conv2d(c, hd, 1, bias=False), norm=BatchNorm2d(hd)))
+            nn.Identity() if c == hd else ConvNorm(nn.Conv2d(c, hd, 1, bias=False),
+                                                   BatchNorm2d(hd))
             for c in feat_channels)
         for i in range(len(feat_channels), num_levels):  # extra levels, stride 2 each
             c = feat_channels[-1] if i == len(feat_channels) else hd
-            self.input_proj.append(nn.Sequential(OrderedDict(
-                conv=nn.Conv2d(c, hd, 3, 2, 1, bias=False), norm=BatchNorm2d(hd))))
+            self.input_proj.append(ConvNorm(nn.Conv2d(c, hd, 3, 2, 1, bias=False),
+                                            BatchNorm2d(hd)))
         self.decoder = TransformerDecoder(hd, nhead, dim_feedforward, num_points, num_layers,
                                           reg_max, activation, self.eval_idx, layer_scale)
         if num_denoising > 0:

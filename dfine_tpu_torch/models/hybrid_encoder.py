@@ -4,7 +4,6 @@ Returns ``(outs, inner_outs)``; the FPN maps feed the mask pixel decoder."""
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -12,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (ConvBNA, LayerNorm, MultiHeadSelfAttention, RepNCSPELAN4, SCDown,
+from .layers import (ConvBNA, ConvNorm, LayerNorm, MultiHeadSelfAttention, RepNCSPELAN4, SCDown,
                      BatchNorm2d, get_activation)
 
 
@@ -77,7 +76,7 @@ class HybridEncoder(nn.Module):
         self.use_encoder_idx = tuple(use_encoder_idx)
         self.pe_temperature = pe_temperature
         self.input_proj = nn.ModuleList(
-            nn.Sequential(OrderedDict(conv=nn.Conv2d(c, hd, 1, bias=False), norm=BatchNorm2d(hd)))
+            ConvNorm(nn.Conv2d(c, hd, 1, bias=False), BatchNorm2d(hd))
             for c in in_channels
         )
         self.encoder = nn.ModuleList(

@@ -9,7 +9,8 @@ the input's dtype; their parameters and statistics stay fp32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from collections import OrderedDict
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -142,6 +143,11 @@ class ConvBN(nn.Module):
         self.act = get_activation(act)
         self.lab = LearnableAffine() if (act is not None and use_lab) else None
 
+    def bn_pairs(self) -> Tuple[Tuple[str, str], ...]:
+        """(conv, BatchNorm) submodule names, each BatchNorm straight after
+        its conv: what serving folds (``infer/fuse.py``)."""
+        return (("conv", "bn"),)
+
     def forward(self, x):
         x = self.bn(self.conv(x))
         if self.has_act:
@@ -162,8 +168,21 @@ class ConvBNA(nn.Module):
         self.norm = BatchNorm2d(out_ch)
         self.act = get_activation(act)
 
+    def bn_pairs(self) -> Tuple[Tuple[str, str], ...]:
+        return (("conv", "norm"),)
+
     def forward(self, x):
         return self.act(self.norm(self.conv(x)))
+
+
+class ConvNorm(nn.Sequential):
+    """Conv then BN, no act: the encoder's and decoder's ``input_proj``."""
+
+    def __init__(self, conv: nn.Conv2d, norm: BatchNorm2d):
+        super().__init__(OrderedDict(conv=conv, norm=norm))
+
+    def bn_pairs(self) -> Tuple[Tuple[str, str], ...]:
+        return (("conv", "norm"),)
 
 
 class VGGBlock(nn.Module):

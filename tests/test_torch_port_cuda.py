@@ -1256,3 +1256,73 @@ def test_train_step_keeps_a_bounded_number_of_graphs(cuda):
     assert (counters.get("train.graph_captures"), counters.get("train.graph_replays"),
             counters.get("train.eager_steps")) == (MAX_GRAPHS, 2 * MAX_GRAPHS + 1, 1)
     assert len(step.graphs) == MAX_GRAPHS and state.step == 2 * MAX_GRAPHS + 2
+
+
+def test_served_graph_runs_no_batchnorm_and_refolds_on_load(cuda, tmp_path):
+    """``AOTModel`` l detection bf16 at 640, built from drawn weights A
+    (``test_torch_port_serve_fold.draw``; ``serve.folds`` counts 193 at the
+    build and 193 at the load below): ten profiled replays of its graph
+    run no ``bn_fw`` kernel (by kernel symbol, as ``chip_smoke._device_counts``
+    counts them) and the six sampling launches a replay holds. After a strict
+    ``load_state_dict`` of weights B following the capture, the replayed
+    decode matches the unfused eager bf16 serving program holding B by the
+    serving-modes rule (``chip_smoke.phase_serving_modes``): >= 98 % of the
+    top-300 boxes matched 1:1 by box, within 1 px at 640. The unfused program
+    holding A fails that rule, so the replay read the refolded weights. A
+    ``FoldedConvBNReLU`` (cuDNN's conv-bias-ReLU call, rounded once) equals
+    ReLU of its folded conv (conv and bias add, each rounded to bf16) within
+    two bf16 steps."""
+    import sys
+    from pathlib import Path
+
+    from dfine_tpu_torch import AOTModel
+    from dfine_tpu_torch.infer.fuse import FoldedConvBNReLU
+    from dfine_tpu_torch.infer.torch_model import decode
+    from dfine_tpu_torch.models.dfine import set_compute_dtype
+    from dfine_tpu_torch.utils import profiling
+
+    from test_torch_port_serve_fold import FOLDS, draw
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    a, b = draw("l", False, 1, num_classes=80), draw("l", False, 2, num_classes=80)
+    torch.save(a.state_dict(), tmp_path / "a.pth")
+    profiling.drain()
+    with profiling.tracing(True):
+        served = AOTModel("l", str(tmp_path / "a.pth"), 80, 640, 640, half=True, device=cuda)
+    assert profiling.drain()["counters"].get("serve.folds") == FOLDS["l"]
+    x = torch.rand((1, 3, 640, 640), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    with torch.inference_mode():
+        counts = chip_smoke._device_counts(lambda: served._predict(x), 10)
+    assert counts, "the profiler saw no device activity"
+    assert not [k for k in counts if "bn_fw" in k], counts
+    assert sum(n for k, n in counts.items() if "ms_deform_attn_fwd" in k) == 60, counts
+
+    with profiling.tracing(True):
+        served.model.load_state_dict(b.state_dict(), strict=True)
+    assert profiling.drain()["counters"].get("serve.folds") == FOLDS["l"]
+    with torch.inference_mode():
+        ours = served._predict(x)["boxes"][0].float().cpu().numpy() * 640
+
+        def unfused(model):
+            model = set_compute_dtype(model, torch.bfloat16).to(cuda).eval()
+            return decode(model, x, served.num_top_queries)["boxes"][0].float().cpu().numpy() * 640
+
+        want, old = unfused(b), unfused(a)
+
+    def rule(ref):
+        match = chip_smoke.align_by_box(ref, ours)
+        gap = np.abs(ours[match] - ref).max(-1)
+        return float((gap <= 1.0).mean()), float(np.quantile(gap, 0.98))
+
+    assert rule(want)[0] >= 0.98, rule(want)
+    assert rule(old)[0] < 0.98, rule(old)
+
+    block = next(m for m in served.model.modules() if isinstance(m, FoldedConvBNReLU))
+    y = torch.randn((1, block.conv.in_channels, 40, 40), device=cuda, dtype=torch.bfloat16)
+    y = y.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fused, plain = block(y), torch.relu(block.conv(y))
+        plain = plain if block.lab is None else block.lab(plain)
+    torch.testing.assert_close(fused.float(), plain.float(), rtol=2.0 ** -6, atol=2.0 ** -6)

@@ -87,11 +87,16 @@ def test_wide_tail_train_step_matches_jax():
 def test_wide_tail_serves_and_deploys(tmp_path):
     """``TorchModel`` with ``cfg_overrides`` takes a wide model's weights
     (``.npz``, strict: the tail's tensors included) and serves eval, which
-    stops at ``eval_idx``: its outputs equal the port model's eval outputs
-    on the same input (bit-equal: the same layers). Deploy-fused, within
-    SET_TOL of the unfused outputs, aligned by box (the fold reorders f32
-    sums, and top-k may then order near-tied queries otherwise)."""
+    stops at ``eval_idx``: its outputs equal those of the port model under
+    the same serving fold on the same input (bit-equal: the same layers and
+    folded weights). The served model and the deploy-fused one each within
+    SET_TOL of the unfused port model's outputs, aligned by box (the fold
+    reorders f32 sums, and top-k may then order near-tied queries
+    otherwise)."""
+    import copy
+
     from dfine_tpu_torch import TorchModel
+    from dfine_tpu_torch.infer.fuse import fold_for_serving
     from dfine_tpu_torch.infer.torch_model import decode
     from dfine_tpu_torch.utils.checkpoint import port_variables
 
@@ -107,11 +112,14 @@ def test_wide_tail_serves_and_deploys(tmp_path):
         with torch.no_grad():
             outs[deploy] = served.model(x)
             if not deploy:
-                ref = port(x)
+                ref = fold_for_serving(copy.deepcopy(port), torch.float32)(x)
                 for k in ref:
                     assert torch.equal(outs[deploy][k], ref[k]), k
                 assert decode(served.model, x, 300)["boxes"].shape == (1, 300, 4)
-    compare_sets({k: v.numpy() for k, v in outs[False].items()}, outs[True])
+    with torch.no_grad():
+        unfused = {k: v.numpy() for k, v in port(x).items()}
+    for deploy in (False, True):
+        compare_sets(unfused, outs[deploy])
 
 
 # ---------------------------------------------------------- head dim 64 --
