@@ -94,9 +94,9 @@ re-drawn from seed 1):
     deformable-attention kernel against its plain version on the inputs that
     serving the 1080x1920 and 1200x1600 frames in rect mode gives it;
     ``mask2poly`` (no cv2) on served masks;
-14. deploy: ``convert_to_deploy`` (fused) and the serving fold (folded)
-    against unfused at fp32 on the card (phase_model's rule), and bf16
-    serving of all three with device busy ms and activities a frame;
+14. deploy: the serving fold (folded) against unfused at fp32 on the card
+    (phase_model's rule), and bf16 serving of both with device busy ms and
+    activities a frame;
 15. int8: ``w8a8`` and ``w8a16`` at fp32, card against the same converted
     model on the CPU (logits and masks within twice the CPU model's own
     reaction to a 1e-6 input perturbation; the card in the other mode must
@@ -163,11 +163,10 @@ The apps, on the trainer's experiment (``phase_apps``):
     APPS_EXPORT_F1_SHARE of eager's, or, where no window had a free gap,
     with each detection of a straddling pair counted on both sides: kept in
     both backends and dropped in both (``EitherWay``); latency a frame); the ``.pt2`` against
-    the deploy-fused model served eagerly, its witness, detection by
-    detection near the threshold (``threshold_drift``: scores within
-    EXPORT_SCORE_ATOL, and the same F1 exactly wherever that drift changes
-    no detection's side), and against eager (reported beside half the
-    threshold's gap); ``apps.check_errors``;
+    the eager backend, which serves its model, detection by detection near
+    the threshold (``threshold_drift``: scores within EXPORT_SCORE_ATOL, and
+    the same F1 exactly wherever that drift changes no detection's side;
+    reported beside half the threshold's gap); ``apps.check_errors``;
     ``apps.quant`` with the config's ``int8_max_drop``, forced to revert
     every kernel (it must end at ``count_int8 = (0, n)`` with the fp F1),
     and with ``int8_max_drop=1`` (every kernel stays int8); ``Int8Model``
@@ -197,15 +196,15 @@ after 12, before 13, beside the other train phases):
     10 timed steps, p50/p90, device ms, peak memory, launches by kernel and
     head dim (2 + 2 sampling, 6 + 6 scatters a step); the three scatters
     and ``index_add_`` on one more step's own D = 64 inputs; ``TorchModel``
-    serving the trained weights (plain and deploy-fused: eval stops at
-    ``eval_idx``, 2 sampling launches a frame); the first step in fp32 card
+    serving the trained weights (eval stops at ``eval_idx``, 2 sampling
+    launches a frame); the first step in fp32 card
     against CPU (``train_parity``'s rules);
 22. extra_level: m det+seg with a fourth level (stride 64, points (3, 6,
     3, 3)): ``TorchModel`` serving 12 frames (4 launches a frame over 4
     levels, the served sampling inputs against the plain version), one
     train step at batch 8 (4 + 16 launches), the fp32 model card against
     CPU, the 4-level ``AOTModel`` replayed against eager (fp32) and
-    deploy-fused in bf16;
+    served in bf16 (the extra level's BatchNorm folded);
 23. flat_optim: ``build_optimizer(flat=True)`` against the four-group
     ``Optimizer`` on path 21's model with the freeze mask, per-group peaks
     and ``b_accum_steps`` 2, from the same gradients: parameters and EMA
@@ -354,7 +353,7 @@ SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
 # detections at a threshold in its scores' widest gap that keeps 1 to
 # APPS_KEEP in the busiest frame (infer_threshold); test_batching's sweep
 # over APPS_BATCH_IMAGES images a batch size, up to APPS_MAX_BATCH. The .pt2
-# is the deploy-fused model in bf16: its bench row must keep
+# is the eager backend's model in bf16: its bench row must keep
 # APPS_EXPORT_F1_SHARE of eager's F1 (the runs on the mask-polygon labels
 # read 0.95, 0.96 and 1.0 of it on an H100 80GB HBM3 at 700 W, 0.72 once at
 # a threshold 1e-6 above a score, and 0.89 once in a gap of the fp32 scores
@@ -362,11 +361,10 @@ SERVE_SCORE_ATOL, SERVE_BOX_ATOL_PX, SERVE_MASK_SHARE = 1e-5, 1e-3, 1e-4
 # 1-7 times a run); where no window has a free gap, each detection of a
 # straddling pair counts on both sides (as COCO's ignore regions do): the
 # share must hold with those detections all kept in both backends and with
-# them all dropped (EitherWay). TorchModel(deploy=True) in bf16, the
-# same fused model eagerly, is its witness: near the threshold the .pt2's
-# scores stay within EXPORT_SCORE_ATOL of the witness's (as phase_export
-# holds them on one input), and where that drift moves no witness detection
-# across the threshold, bench's F1 of the two is equal exactly
+# them all dropped (EitherWay). Near the threshold the .pt2's scores stay
+# within EXPORT_SCORE_ATOL of eager's (as phase_export holds them on one
+# input), and where that drift moves no eager detection across the
+# threshold, bench's F1 of the two is equal exactly
 APPS_KEEP, APPS_INFER_FRAMES, APPS_BATCH_IMAGES, APPS_MAX_BATCH = 20, 4, 128, 32
 APPS_EXPORT_F1_SHARE = 0.9
 # the keep windows (least, most kept in the busiest val frame) tried in turn
@@ -2871,44 +2869,43 @@ def _served_profile(model, frame):
 
 
 def phase_deploy(res):
-    """The two BatchNorm folds against the unfused model: fp32 on the card
-    by phase_model's rule, ``convert_to_deploy`` ("fused") and the serving
-    fold ("folded", ``fold_for_serving``); bf16 serving of the unfused
-    model (a ``TorchModel`` that serves the model as built), of the
-    folded one (``TorchModel``'s default) and of the fused one
-    (``deploy=True``), with device busy ms and activities a frame."""
+    """The serving fold against the unfused model: fp32 on the card by
+    phase_model's rule (``fold_for_serving``, "folded"); bf16 serving of the
+    unfused model (a ``TorchModel`` that serves the model as built) and of
+    the folded one (``TorchModel``), with device busy ms and activities a
+    frame."""
     import torch
 
     from dfine_tpu_torch import TorchModel
-    from dfine_tpu_torch.infer.fuse import convert_to_deploy, fold_for_serving
+    from dfine_tpu_torch.infer.base import load_weights
+    from dfine_tpu_torch.infer.fuse import fold_for_serving
+    from dfine_tpu_torch.models.dfine import build_model, set_compute_dtype
 
     class UnfusedModel(TorchModel):
-        def _convert(self, model):
-            return model
+        def _build(self, model_path):
+            model = load_weights(build_model(self.model_name, self.n_outputs,
+                                             self.enable_mask_head, device="cpu",
+                                             cfg_overrides=self.cfg_overrides), model_path)
+            self.model = set_compute_dtype(model, torch.bfloat16).to(self.device).eval()
 
     pth, frames = _serving_weights(res), _serve_frames()[:4]
     cpu = res["parity_model"]
     unfused = copy.deepcopy(cpu).to(DEV)
     x = torch.from_numpy(np.random.default_rng(2).uniform(size=(1, 3, IMG, IMG)).astype(np.float32))
-    parity = {}
-    for tag, fold in (("fused", convert_to_deploy),
-                      ("folded", lambda m: fold_for_serving(m, torch.float32))):
-        model = fold(copy.deepcopy(cpu)).to(DEV)
-        parity[tag] = _card_vs_cpu(unfused, model, x.to(DEV), DEPLOY_ATOL,
-                                   f"deploy fp32 {tag} vs unfused")
-        del model
-    del unfused
+    folded = fold_for_serving(copy.deepcopy(cpu), torch.float32).to(DEV)
+    parity = {"folded": _card_vs_cpu(unfused, folded, x.to(DEV), DEPLOY_ATOL,
+                                     "deploy fp32 folded vs unfused")}
+    del unfused, folded
     out = {}
-    for tag, cls, deploy in (("unfused", UnfusedModel, False), ("folded", TorchModel, False),
-                             ("fused", TorchModel, True)):
+    for tag, cls in (("unfused", UnfusedModel), ("folded", TorchModel)):
         model = cls(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=True,
-                    enable_mask_head=True, device=DEV, deploy=deploy)
+                    enable_mask_head=True, device=DEV)
         out[tag] = {**_serve_timed(model, frames, MODE_FRAMES), **_served_profile(model, frames[0])}
         del model
     emit({"phase": "deploy", "parity_fp32": parity, "bf16_serving": out})
-    res["deploy_counts"] = out["fused"]["deform_launches"]
-    if out["fused"]["deform_launches"] != DECODER_LAYERS * MODE_FRAMES:
-        raise AssertionError(f"deploy: {out['fused']['deform_launches']} deform launches")
+    res["deploy_counts"] = out["folded"]["deform_launches"]
+    if out["folded"]["deform_launches"] != DECODER_LAYERS * MODE_FRAMES:
+        raise AssertionError(f"deploy: {out['folded']['deform_launches']} deform launches")
 
 
 def _moved_by_noise(cpu, x):
@@ -3075,16 +3072,14 @@ print(json.dumps({"load_seconds": load_s, "kept": kept, "deform_launches": launc
 
 
 def phase_export(res):
-    """export_model (.pt2 of the deploy-fused bf16 serving program, npz,
-    the graph manifest) and a dynamic-batch .pt2; a fresh process imports
-    dfine_tpu_torch, loads them and serves; its program outputs held
-    against the eager fused model on the same input."""
+    """export_model (.pt2 of the bf16 serving program of TorchModel's
+    model, npz, the graph manifest) and a dynamic-batch .pt2; a fresh
+    process imports dfine_tpu_torch, loads them and serves; its program
+    outputs held against TorchModel's model on the same input."""
     import torch
 
+    from dfine_tpu_torch import TorchModel
     from dfine_tpu_torch.export import ServingProgram, export_model
-    from dfine_tpu_torch.infer.base import load_weights
-    from dfine_tpu_torch.infer.fuse import convert_to_deploy
-    from dfine_tpu_torch.models.dfine import build_model, set_compute_dtype
 
     pth, frames = _serving_weights(res), _serve_frames()[:4]
     out_dir = os.path.join(res["tmp"].name, "export")
@@ -3106,11 +3101,12 @@ def phase_export(res):
     if proc.returncode != 0:
         raise AssertionError(f"fresh process failed: {proc.stderr[-3000:]}")
     fresh = json.loads(proc.stdout.strip().splitlines()[-1])
-    eager = load_weights(build_model(SIZE, NUM_CLASSES, True, device="cpu"), pth)
-    eager = set_compute_dtype(convert_to_deploy(eager), torch.bfloat16).to(DEV).eval()
+    eager = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, half=True, enable_mask_head=True,
+                       device=DEV).model
     with torch.inference_mode():
         ref = {k: v.float().cpu().numpy()
                for k, v in ServingProgram(eager)(torch.from_numpy(x).to(DEV)).items()}
+    del eager
     with np.load(inp + ".out.npz") as z:
         ours = {k: z[k] for k in z.files}
     match = align_by_box(ref["boxes"][0], ours["boxes"][0])
@@ -3118,6 +3114,7 @@ def phase_export(res):
     keep = box_gap <= BOX_ATOL
     score_err = float(np.abs(ours["scores"][0][match[keep]] - ref["scores"][0][keep]).max())
     emit({"phase": "export", "export_seconds": export_s, "artifacts": sorted(arts),
+          "pt2_bytes": os.path.getsize(arts["exported"]),
           "aot_manifest": open(arts["aot"]).read().strip().splitlines(),
           "fresh_process": fresh, "vs_eager": {"matched_frac": float(keep.mean()),
                                                "score_max_abs_err": score_err,
@@ -4473,12 +4470,6 @@ def phase_apps(res):
             rows = bench_app.main(argv, device=DEV)
         bench_s = time.perf_counter() - t0
         by = {r["backend"]: r for r in rows}
-        # the witness: the .pt2's model (deploy-fused, bf16) served eagerly
-        with counted(launches, "bench_fused_eager"):
-            witness = TorchModel(cfg.model_name, weights, deploy=True,
-                                 **{**lo, "conf_thresh": conf})
-            fused = bench_app.test_model(witness, bench_ds, label_names(cfg),
-                                         cfg.train.iou_thresh)
         # where the threshold lies inside spans (no window had a free gap),
         # each detection of a straddling eager/.pt2 pair counts on both
         # sides: bench's F1 of both backends with those all kept and with
@@ -4503,39 +4494,33 @@ def phase_apps(res):
               "launches": launches["bench"], "val_frames": len(val_names),
               "export_f1_share_min": APPS_EXPORT_F1_SHARE,
               "straddling_pairs": sum(len(x[0]) for x in straddle),
-              "f1_either_way": either or None,
-              "fused_eager_witness": fused, "fused_eager_launches": launches["bench_fused_eager"]})
+              "f1_either_way": either or None})
         nv = len(val_names)
         # eager and .pt2: 4 a call (the smoke check at load, then each frame);
         # the CUDA graph: 4 in each of its 2 warm-up calls and its capture (a
         # replay runs them on the card without the wrapper)
         _want_deform(launches["bench"], DECODER_LAYERS * (2 * (nv + 1) + 3), "bench")
-        _want_deform(launches["bench_fused_eager"], DECODER_LAYERS * (nv + 1), "bench witness")
         if not share_ok:
             failures.append(f"bench: {rows}, either way {either}")
         # the scores near the threshold, detection by detection: the .pt2
-        # against its witness (one program: held within EXPORT_SCORE_ATOL, and
-        # to the same F1 exactly wherever no witness score lies within that
-        # drift of conf) and against eager (no pair on two sides of conf
-        # where no span straddles it)
-        witness.conf_thresh = lo["conf_thresh"]
-        served["witness"] = serve(witness)
-        drift = {"pt2_vs_witness": threshold_drift(served["witness"], served["pt2"], conf,
-                                                   APPS_DRIFT_WINDOW),
-                 "pt2_vs_eager": threshold_drift(served["eager"], served["pt2"], conf,
-                                                 APPS_DRIFT_WINDOW)}
-        same = drift["pt2_vs_witness"]
+        # against eager, which serves its model (held within EXPORT_SCORE_ATOL,
+        # and to the same F1 exactly wherever no eager score lies within that
+        # drift of conf); the largest eager/.pt2 score gap of any detection
+        # of bench's frames beside it
+        same = threshold_drift(served["eager"], served["pt2"], conf, APPS_DRIFT_WINDOW)
         f1_implied = same["drift"] < same["margin"]
+        eager_f1 = by.get("torch-eager", {}).get("f1")
         emit({"phase": "apps", "step": "threshold_drift", "conf_thresh": conf,
               "half_gap": gap / 2, "window": APPS_DRIFT_WINDOW,
-              "score_atol": EXPORT_SCORE_ATOL, **drift,
-              "pt2_f1_equal_to_witness": by.get("torch-export", {}).get("f1") == fused["f1"],
+              "score_atol": EXPORT_SCORE_ATOL, "pt2_vs_eager": same,
+              "eager_pt2_score_gap_max": max((float((x[:, 1] - x[:, 0]).max())
+                                              for x in spans if len(x)), default=0.0),
+              "pt2_f1_equal_to_eager": by.get("torch-export", {}).get("f1") == eager_f1,
               "f1_equality_implied": f1_implied})
         if same["drift"] > EXPORT_SCORE_ATOL or same["unpaired"]:
-            failures.append(f"bench: .pt2 against its fused-eager witness near conf {same}")
-        if f1_implied and by.get("torch-export", {}).get("f1") != fused["f1"]:
-            failures.append(f"bench: .pt2 F1 {by.get('torch-export')} against its fused-eager "
-                            f"witness's {fused['f1']}")
+            failures.append(f"bench: .pt2 against eager near conf {same}")
+        if f1_implied and by.get("torch-export", {}).get("f1") != eager_f1:
+            failures.append(f"bench: .pt2 F1 {by.get('torch-export')} against eager's {eager_f1}")
 
         t0 = time.perf_counter()
         with counted(launches, "check_errors"):
@@ -4920,9 +4905,8 @@ def phase_wide_tail(res):
     step, peak memory; the scatters on one more eager step's own D = 64
     inputs; the first
     step in fp32 card against CPU (phase_train_parity's rules); and
-    ``TorchModel`` serving the trained weights from a ``.pth``, plain and
-    deploy-fused, eval stopping at ``eval_idx`` (2 sampling launches a frame,
-    all at D = 32)."""
+    ``TorchModel`` serving the trained weights from a ``.pth``, eval
+    stopping at ``eval_idx`` (2 sampling launches a frame, all at D = 32)."""
     import tempfile
 
     import torch
@@ -5021,32 +5005,29 @@ def phase_wide_tail(res):
     del state, step, batch, model
     torch.cuda.empty_cache()
     frames = _frames(4)
-    served = {}
-    for deploy in (False, True):
-        tm = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.0, half=True,
-                        device=DEV, deploy=deploy, cfg_overrides=WIDE_OVERRIDES)
-        for f in frames:
-            tm(f)
-        acc, ts = {}, []
-        with launch_widths(acc):
-            reset_launch_counts()
-            for i in range(MODE_FRAMES):
-                t = time.perf_counter()
-                (out,) = tm(frames[i % len(frames)])
-                ts.append(time.perf_counter() - t)
-                if not (np.isfinite(out["boxes"]).all() and len(out["scores"])):
-                    failures.append(f"served (deploy {deploy}): no finite detections")
-            launches = launch_counts()["ms_deform_attn_fwd"]
-        q50, q90 = percentiles(ts)
-        served["deploy" if deploy else "plain"] = {
-            "call_p50_ms": q50, "call_p90_ms": q90, "deform_launches": launches,
-            "by_width": _by_width(acc)}
-        if acc != {("ms_deform_attn_fwd", HEAD_DIM): WIDE_EVAL_LAYERS * MODE_FRAMES}:
-            failures.append(f"served (deploy {deploy}) launches {_by_width(acc)}")
-        del tm
+    tm = TorchModel(SIZE, pth, NUM_CLASSES, IMG, IMG, conf_thresh=0.0, half=True,
+                    device=DEV, cfg_overrides=WIDE_OVERRIDES)
+    for f in frames:
+        tm(f)
+    acc, ts = {}, []
+    with launch_widths(acc):
+        reset_launch_counts()
+        for i in range(MODE_FRAMES):
+            t = time.perf_counter()
+            (out,) = tm(frames[i % len(frames)])
+            ts.append(time.perf_counter() - t)
+            if not (np.isfinite(out["boxes"]).all() and len(out["scores"])):
+                failures.append("served: no finite detections")
+        launches = launch_counts()["ms_deform_attn_fwd"]
+    q50, q90 = percentiles(ts)
+    if acc != {("ms_deform_attn_fwd", HEAD_DIM): WIDE_EVAL_LAYERS * MODE_FRAMES}:
+        failures.append(f"served launches {_by_width(acc)}")
+    del tm
     tmp.cleanup()
     emit({"phase": "wide_tail_serving", "frames": MODE_FRAMES, "what": "TorchModel bf16 720p "
-          "BGR frames, weights of the wide train run, eval stops at eval_idx", **served})
+          "BGR frames, weights of the wide train run, eval stops at eval_idx",
+          "call_p50_ms": q50, "call_p90_ms": q90, "deform_launches": launches,
+          "by_width": _by_width(acc)})
     try:
         _card_vs_cpu_step(res, "wide_tail_parity", init, seg=False, overrides=WIDE_OVERRIDES)
     except AssertionError as e:
@@ -5064,11 +5045,11 @@ def phase_extra_level(res):
     8 (bf16, masks; 4 sampling and 16 scatter launches); the model fp32 on
     the card against the CPU (phase_model's rule, weights re-drawn from seed
     1); the 4-level ``AOTModel`` (fp32) replayed against the same model run
-    eagerly, then deploy-fused and served in bf16 (the extra level's
-    BatchNorm folded)."""
+    eagerly, then served in bf16 (the extra level's BatchNorm folded)."""
     import torch
 
     from dfine_tpu_torch import AOTModel, TorchModel
+    from dfine_tpu_torch.infer.fuse import FoldedBatchNorm2d
     from dfine_tpu_torch.infer.torch_model import decode
     from dfine_tpu_torch.models.dfine import build_model
     from dfine_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -5136,15 +5117,14 @@ def phase_extra_level(res):
     del cpu, gpu
 
     aot = {}
-    for tag, half, deploy in (("fp32", False, False), ("bf16_deploy", True, True)):
+    for tag, half in (("fp32", False), ("bf16", True)):
         model = AOTModel(SIZE, None, NUM_CLASSES, IMG, IMG, conf_thresh=0.5, half=half,
-                         enable_mask_head=True, device=DEV, deploy=deploy,
-                         cfg_overrides=EXTRA_OVERRIDES)
-        if deploy:  # the extra level's BatchNorm folded into its conv, served in bf16
-            folded = isinstance(model.model.decoder.input_proj[-1].norm, torch.nn.Identity)
+                         enable_mask_head=True, device=DEV, cfg_overrides=EXTRA_OVERRIDES)
+        if half:  # the extra level's BatchNorm folded into its conv, served in bf16
+            folded = type(model.model.decoder.input_proj[-1].norm) is FoldedBatchNorm2d
             r = {"extra_level_bn_folded": folded, **_serve_timed(model, frames, MODE_FRAMES)}
             if not folded:
-                failures.append("deploy: the extra level's BatchNorm was not folded")
+                failures.append("bf16: the extra level's BatchNorm was not folded")
         else:
             worst = {}
             for f in frames[:2]:

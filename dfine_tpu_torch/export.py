@@ -7,13 +7,13 @@
   ``dfine_tpu_torch::ms_deform_attn_fwd``: import ``dfine_tpu_torch`` before
   ``torch.export.load`` so that it is registered.
 - ``npz``: the weights as JAX variables (``save_params_npz``'s layout),
-  before deploy fusion, which ``TorchModel(deploy=True)`` applies at load.
+  in fp32 and unfolded, as ``TorchModel`` takes them.
 - ``aot``: a manifest of the fixed-shape program ``AOTModel`` makes at load
   (on the card, its captured CUDA graph: input shape, the bytes its memory
   pool took and the sampling-kernel launches it holds).
 
-``deploy`` (default on, as in JAX) fuses conv + BN and the RepVGG branches
-in the exported program.
+Each is of the model that ``TorchModel`` serves (``infer/torch_model.py::
+serving_model``: the BatchNorms folded into the convs, ``infer/fuse.py``).
 """
 
 from __future__ import annotations
@@ -27,11 +27,8 @@ import torch.nn as nn
 
 from .device import resolve_device
 from .infer.aot_model import GraphProgram, pool_bytes
-from .infer.base import load_weights
-from .infer.fuse import convert_to_deploy
-from .infer.torch_model import decode
-from .models.dfine import DFINE, build_model, set_compute_dtype
-from .ops.kernels import check_kernel_limits
+from .infer.torch_model import decode, serving_model
+from .models.dfine import DFINE
 from .utils.checkpoint import port_variables
 
 
@@ -66,8 +63,7 @@ def make_exported(model: DFINE, input_size: Tuple[int, int], num_top: int = 300,
 def export_model(model_name: str, model_path: Optional[str], num_classes: int,
                  out_dir: Union[str, Path], input_size: Tuple[int, int] = (640, 640),
                  half: bool = True, max_batch_size: int = 1, enable_mask_head: bool = False,
-                 formats=("aot", "exported", "npz"), deploy: bool = True,
-                 dynamic_batch: bool = False,
+                 formats=("aot", "exported", "npz"), dynamic_batch: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
                  cfg_overrides: Sequence[Tuple[str, Any]] = ()) -> Dict[str, Path]:
     """Write the artifacts of ``formats`` under ``out_dir``; weights from
@@ -76,18 +72,18 @@ def export_model(model_name: str, model_path: Optional[str], num_classes: int,
     dev = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    model = load_weights(build_model(model_name, num_classes, enable_mask_head, device="cpu",
-                                     cfg_overrides=cfg_overrides), model_path)
     artifacts: Dict[str, Path] = {}
-    if "npz" in formats:
-        p = out_dir / f"dfine_{model_name}.npz"
-        np.savez(p, **port_variables(model))
-        artifacts["npz"] = p
-    if deploy:
-        convert_to_deploy(model)
-    model = set_compute_dtype(model, torch.bfloat16 if half else torch.float32).to(dev).eval()
-    if dev.type == "cuda":
-        check_kernel_limits(model)
+
+    def write_npz(model: DFINE) -> DFINE:
+        """The npz of the loaded fp32 weights (the fold keeps the state dict)."""
+        if "npz" in formats:
+            artifacts["npz"] = out_dir / f"dfine_{model_name}.npz"
+            np.savez(artifacts["npz"], **port_variables(model))
+        return model
+
+    model = serving_model(model_name, num_classes, enable_mask_head, model_path,
+                          torch.bfloat16 if half else torch.float32, dev, cfg_overrides,
+                          write_npz)
     if "exported" in formats:
         p = out_dir / f"dfine_{model_name}.pt2"
         torch.export.save(make_exported(model, input_size, batch=max_batch_size,

@@ -1,37 +1,30 @@
-"""BatchNorm folding (port of ``dfine_tpu/infer/fuse.py``), in two forms
-that share one arithmetic (``fold``, ``merge_branch``), computed in fp32:
+"""BatchNorm folding for serving (port of ``dfine_tpu/infer/fuse.py``),
+computed in fp32.
 
-* **the serving fold** (``fold_for_serving``), which every serving backend
-  applies to the model it serves: each eval conv + BatchNorm pair runs as
-  one biased conv, and each ``VGGBlock``'s 1x1 branch runs inside its
-  3x3's centre tap. The pairs are those each block declares by name
-  (``bn_pairs``): those of the deploy rewrite plus the mask head's five
-  (``MaskPixelDecoder``: each lateral conv, ``enc_proj`` and the
-  ``ConvTranspose2d`` ``upconv``, whose weight takes the scale along its
-  dim 1). No module changes its name, parameters or buffers:
-  the modules take serving classes (``FoldedConv2d``, ...) whose forward
-  reads the folded weight and bias, kept as buffers outside the state
-  dict, so ``state_dict()`` and a strict ``load_state_dict`` are the
-  unfused model's. The folded tensors are allocated once in the compute
-  dtype and refolded in place (``copy_``) by a load-state-dict pre-hook
-  at every ``load_state_dict``, from the incoming values in fp32, so a
-  captured CUDA graph keeps reading them where they are. A write to a
-  parameter other than through ``load_state_dict`` is not seen until the
-  next load. A served model is for eval only. On the card a backbone
-  ``ConvBN`` with a ReLU and ``groups`` 1 runs conv, bias and ReLU as one
-  cuDNN call (``torch.cudnn_convolution_relu``), so that its bias takes no
-  kernel of its own; a grouped conv keeps the plain conv and its bias add,
-  since cuDNN's fused call takes a slow direct kernel for it.
-* **the deploy rewrite** (``convert_to_deploy``, the form of the
-  reference's ``deploy()``, which export uses): each BatchNorm of a
-  declared pair outside the pixel decoder (``ConvBN``'s ``bn``;
-  ``ConvBNA``'s and the ``input_proj``s' ``norm``: the pairs JAX's
-  ``fuse_conv_bn`` folds, :24-69) goes into the conv's weight and a conv
-  bias and becomes ``nn.Identity``; in each ``VGGBlock`` the 1x1 branch is
-  added into the 3x3's centre tap and ``conv2`` goes. The state dict's
-  keys change. The pixel decoder's norms stay, as in JAX.
-
-Either way the fp32 BatchNorm islands and their casts leave the bf16 graph.
+``fold_for_serving``, which every serving backend and export apply to the
+model they serve (``infer/torch_model.py::serving_model``): each eval
+conv + BatchNorm pair runs as one biased conv (``fold``), and each
+``VGGBlock``'s 1x1 branch runs inside its 3x3's centre tap
+(``merge_branch``). The pairs are those each block declares by name
+(``bn_pairs``; a ``VGGBlock`` its summed branches, ``bn_branches``): those
+the JAX package folds plus the mask head's five
+(``MaskPixelDecoder``: each lateral conv, ``enc_proj`` and the
+``ConvTranspose2d`` ``upconv``, whose weight takes the scale along its
+dim 1). No module changes its name, parameters or buffers:
+the modules take serving classes (``FoldedConv2d``, ...) whose forward
+reads the folded weight and bias, kept as buffers outside the state
+dict, so ``state_dict()`` and a strict ``load_state_dict`` are the
+unfused model's. The folded tensors are allocated once in the compute
+dtype and refolded in place (``copy_``) by a load-state-dict pre-hook
+at every ``load_state_dict``, from the incoming values in fp32, so a
+captured CUDA graph keeps reading them where they are. A write to a
+parameter other than through ``load_state_dict`` is not seen until the
+next load. A served model is for eval only. On the card a backbone
+``ConvBN`` with a ReLU and ``groups`` 1 runs conv, bias and ReLU as one
+cuDNN call (``torch.cudnn_convolution_relu``), so that its bias takes no
+kernel of its own; a grouped conv keeps the plain conv and its bias add,
+since cuDNN's fused call takes a slow direct kernel for it. The fp32
+BatchNorm islands and their casts leave the bf16 graph.
 """
 
 from __future__ import annotations
@@ -43,7 +36,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.decoder import MaskPixelDecoder
 from ..models.layers import BatchNorm2d, ConvBN, VGGBlock
 from ..utils.profiling import count
 
@@ -89,11 +81,14 @@ class FoldedConvTranspose2d(nn.ConvTranspose2d):
 
 class FoldedConvBNReLU(ConvBN):
     """A ``ConvBN`` with a ReLU and ``groups`` 1, folded: on the card conv,
-    bias and ReLU in one cuDNN call."""
+    bias and ReLU in one cuDNN call. The call has no meta kernel, so a trace
+    runs it only where every size is concrete (``torch.export`` runs the
+    kernel itself for the output's shape); at a symbolic size (an export's
+    dynamic batch) it takes the conv, then the ReLU."""
 
     def forward(self, x):
         c = self.conv
-        if x.is_cuda:
+        if x.is_cuda and not any(isinstance(d, torch.SymInt) for d in x.shape):
             x = torch.cudnn_convolution_relu(x, c.folded_weight, c.folded_bias, c.stride,
                                              c.padding, c.dilation, c.groups)
         else:
@@ -115,20 +110,15 @@ class FoldedVGGBlock(VGGBlock):
         return self.act(self.conv1(x))
 
 
-def _bn_pairs(m: nn.Module) -> tuple:
-    """The (conv, BatchNorm) pairs that block ``m`` declares
-    (``bn_pairs``: ``ConvBN``, ``ConvBNA``, ``ConvNorm``,
-    ``MaskPixelDecoder``), by submodule name."""
-    return m.bn_pairs() if hasattr(m, "bn_pairs") else ()
-
-
 def _serving_units(m: nn.Module) -> tuple:
     """What the serving fold folds in block ``m``: units, each a tuple of
-    (conv, BatchNorm) names run as the first conv (a second pair is a
-    ``VGGBlock``'s 1x1 branch)."""
-    if isinstance(m, VGGBlock):
-        return ((("conv1.conv", "conv1.norm"), ("conv2.conv", "conv2.norm")),)
-    return tuple((pair,) for pair in _bn_pairs(m))
+    (conv, BatchNorm) names run as the first conv. The branches a block
+    sums (``bn_branches``: ``VGGBlock``) are one unit; each pair a block
+    declares (``bn_pairs``: ``ConvBN``, ``ConvBNA``, ``ConvNorm``,
+    ``MaskPixelDecoder``) is one."""
+    if hasattr(m, "bn_branches"):
+        return (m.bn_branches(),)
+    return tuple((pair,) for pair in (m.bn_pairs() if hasattr(m, "bn_pairs") else ()))
 
 
 @torch.no_grad()
@@ -166,9 +156,11 @@ def fold_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     are still fp32; the folded tensors in ``dtype``, each rounded once
     from the fp32 fold. Counts ``serve.folds``: the pairs and branches
     folded, at the build and at each load. Returns the model."""
-    inner = {id(c) for m in model.modules() if isinstance(m, VGGBlock) for c in (m.conv1, m.conv2)}
     for owner in list(model.modules()):
-        units = () if id(owner) in inner else _serving_units(owner)
+        # a block comes before its children: a pair whose BatchNorm an
+        # enclosing block's unit folded (a VGGBlock's branch) is not folded again
+        units = tuple(parts for parts in _serving_units(owner)
+                      if not isinstance(owner.get_submodule(parts[0][1]), FoldedBatchNorm2d))
         if not units:
             continue
         for parts in units:
@@ -190,54 +182,3 @@ def fold_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         owner.register_load_state_dict_pre_hook(hook)
         hook(owner, {}, "")
     return model
-
-
-# ------------------------------------------------------------- deploy --
-
-
-def _fold(conv: nn.Conv2d, bn: BatchNorm2d) -> None:
-    w, b = fold(conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                bn.eps)
-    conv.weight.copy_(w)
-    if conv.bias is None:
-        conv.bias = nn.Parameter(b)
-    else:
-        conv.bias.copy_(b)
-
-
-@torch.no_grad()
-def fuse_conv_bn(model: nn.Module) -> nn.Module:
-    for m in list(model.modules()):
-        if isinstance(m, MaskPixelDecoder):  # its norms stay, as in JAX
-            continue
-        for conv, bn in _bn_pairs(m):
-            if isinstance(getattr(m, bn), BatchNorm2d):
-                _fold(getattr(m, conv), getattr(m, bn))
-                setattr(m, bn, nn.Identity())
-    return model
-
-
-@torch.no_grad()
-def fuse_repvgg_branch(model: nn.Module) -> nn.Module:
-    """After ``fuse_conv_bn``: VGGBlock(x) = act(conv1'(x))."""
-    for m in model.modules():
-        if not (isinstance(m, VGGBlock) and m.conv2 is not None):
-            continue
-        k3, k1 = m.conv1.conv, m.conv2.conv
-        if not (isinstance(m.conv1.norm, nn.Identity) and isinstance(m.conv2.norm, nn.Identity)):
-            raise ValueError("fuse_repvgg_branch runs after fuse_conv_bn")
-        if k3.kernel_size != (3, 3) or k1.kernel_size != (1, 1) or k3.weight.shape[:2] != k1.weight.shape[:2]:
-            continue
-        w, b = merge_branch(k3.weight, k3.bias, k1.weight, k1.bias)
-        k3.weight.copy_(w)
-        k3.bias.copy_(b)
-        m.conv2 = None
-    return model
-
-
-def convert_to_deploy(model: nn.Module) -> nn.Module:
-    """The full deploy conversion, in place, of an fp32 model (before any
-    bf16 cast). Returns the model."""
-    if any(p.dtype != torch.float32 for p in model.parameters()):
-        raise ValueError("convert_to_deploy folds fp32 weights: fuse before set_compute_dtype")
-    return fuse_repvgg_branch(fuse_conv_bn(model))

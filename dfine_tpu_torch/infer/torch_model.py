@@ -1,12 +1,13 @@
 """Eager PyTorch serving backends (port of ``dfine_tpu/infer/jax_model.py``):
 model forward plus the NMS-free top-k decode on the card. ``TorchModel``
-computes in bf16 or fp32 on the BatchNorm-folded model (``infer/fuse.py``:
-the serving fold, or with ``deploy=True`` the deploy rewrite);
-``Int8Model`` is ``TorchModel`` on the int8-converted model."""
+computes in bf16 or fp32 on the BatchNorm-folded model (``infer/fuse.py``);
+``Int8Model`` is ``TorchModel`` on the int8-converted model.
+``serving_model`` makes the model that every serving backend serves and
+that ``export_model`` writes."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -14,7 +15,7 @@ from ..models.dfine import DFINE, build_model, set_compute_dtype
 from ..ops.kernels import check_kernel_limits
 from ..postprocess import topk_decode
 from .base import BaseServing, load_weights
-from .fuse import convert_to_deploy, fold_for_serving
+from .fuse import fold_for_serving
 from .int8 import convert_int8, count_int8
 
 TOP_MASKS = 100  # masks kept for the strongest queries, in bf16 (jax_model.py:28-29)
@@ -34,31 +35,39 @@ def decode(model: DFINE, images: torch.Tensor, num_top: int,
     return dec
 
 
-class TorchModel(BaseServing):
-    """Serves the model with every eval conv + BatchNorm pair folded into
-    one conv (``infer/fuse.py::fold_for_serving``): ``self.model``'s state
-    dict is the unfused model's, and ``self.model.load_state_dict`` refolds.
-    ``deploy=True`` serves the deploy rewrite instead, as
-    ``export_model(deploy=True)`` does (its state dict's keys differ)."""
+def serving_model(model_name: str, num_classes: int, enable_mask_head: bool,
+                  model_path: Optional[str], dtype: torch.dtype, device: torch.device,
+                  cfg_overrides: Sequence[Tuple[str, Any]] = (),
+                  convert: Callable[[DFINE], DFINE] = lambda m: m) -> DFINE:
+    """The served model: built in fp32 on the CPU, its weights loaded
+    (``load_weights``), folded for serving with the folded tensors in
+    ``dtype`` (``fold_for_serving``), ``convert``-ed while its weights are
+    still fp32 (``Int8Model``: the int8 conversion; export: the npz
+    written), cast to ``dtype``, moved to ``device`` and set to eval; on
+    the card its kernels' limits checked."""
+    model = build_model(model_name, num_classes, enable_mask_head, dtype=torch.float32,
+                        device="cpu", cfg_overrides=cfg_overrides)
+    model = convert(fold_for_serving(load_weights(model, model_path), dtype))
+    model = set_compute_dtype(model, dtype).to(device).eval()
+    if device.type == "cuda":
+        check_kernel_limits(model)
+    return model
 
-    def __init__(self, *args, deploy: bool = False, **kwargs):
-        self.deploy = deploy
-        super().__init__(*args, **kwargs)
+
+class TorchModel(BaseServing):
+    """Serves ``serving_model``'s model: every eval conv + BatchNorm pair
+    folded into one conv (``infer/fuse.py::fold_for_serving``);
+    ``self.model``'s state dict is the unfused model's, and
+    ``self.model.load_state_dict`` refolds."""
 
     def _convert(self, model: DFINE) -> DFINE:
-        """The fp32 model with its weights -> what this backend serves."""
-        if self.deploy:
-            return convert_to_deploy(model)
-        return fold_for_serving(model, torch.bfloat16 if self.half else torch.float32)
+        """The folded fp32 model -> what this backend serves."""
+        return model
 
     def _build(self, model_path: Optional[str]) -> None:
-        dtype = torch.bfloat16 if self.half else torch.float32
-        model = build_model(self.model_name, self.n_outputs, self.enable_mask_head,
-                            dtype=torch.float32, device="cpu", cfg_overrides=self.cfg_overrides)
-        model = self._convert(load_weights(model, model_path))
-        self.model = set_compute_dtype(model, dtype).to(self.device).eval()
-        if self.device.type == "cuda":
-            check_kernel_limits(self.model)
+        self.model = serving_model(self.model_name, self.n_outputs, self.enable_mask_head,
+                                   model_path, torch.bfloat16 if self.half else torch.float32,
+                                   self.device, self.cfg_overrides, self._convert)
 
     def _predict(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         return decode(self.model, images, self.num_top_queries)
@@ -79,5 +88,4 @@ class Int8Model(TorchModel):
     kernels in fp, as JAX's ``convert_params_int8`` leaves a converted tree."""
 
     def _convert(self, model: DFINE) -> DFINE:
-        model = super()._convert(model)
         return model if count_int8(model)[0] else convert_int8(model)

@@ -186,9 +186,7 @@ class ConvNorm(nn.Sequential):
 
 
 class VGGBlock(nn.Module):
-    """RepVGG-style block: 3x3 + 1x1 branches summed, then act. After deploy
-    fusion (``infer/fuse.py``) the 1x1 branch lives in the 3x3's centre tap
-    and ``conv2`` is None."""
+    """RepVGG-style block: 3x3 + 1x1 branches summed, then act."""
 
     def __init__(self, in_ch, out_ch, act="silu"):
         super().__init__()
@@ -196,9 +194,13 @@ class VGGBlock(nn.Module):
         self.conv2 = ConvBNA(in_ch, out_ch, 1, 1)
         self.act = get_activation(act)
 
+    def bn_branches(self) -> Tuple[Tuple[str, str], ...]:
+        """(conv, BatchNorm) submodule names of the branches summed before
+        the act, the 3x3 first: serving folds them as one conv, the 1x1 in
+        the 3x3's centre tap (``infer/fuse.py``)."""
+        return (("conv1.conv", "conv1.norm"), ("conv2.conv", "conv2.norm"))
+
     def forward(self, x):
-        if self.conv2 is None:
-            return self.act(self.conv1(x))
         return self.act(self.conv1(x) + self.conv2(x))
 
 

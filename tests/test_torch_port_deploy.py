@@ -1,8 +1,8 @@
 """What the port does to a model before serving it, against the JAX package
 on the CPU at n, 320 px, fp32, with re-drawn weights: reference ``.pth``
 weights (with an 80 -> 3 class-head map) against
-``dfine_tpu.utils.checkpoint.load_torch_checkpoint``, deploy fusion against
-the unfused model and JAX ``convert_to_deploy``, int8 conversion and both
+``dfine_tpu.utils.checkpoint.load_torch_checkpoint``, the serving fold
+against the unfused model and JAX ``convert_to_deploy``, int8 conversion and both
 int8 modes against JAX ``convert_params_int8`` / ``apply_int8``, and the
 kernels' limits checked where a model reaches the card."""
 
@@ -155,14 +155,15 @@ def _save(path, sd):
 
 
 def test_deploy_fusion_matches_unfused_and_jax():
-    """det+seg: the fused port model against the unfused one and against
-    JAX ``convert_to_deploy`` on the same weights, queries aligned by box
-    (test_serving.py:24: boxes rtol 2e-3, atol 2e-4; logits and masks at the
-    model parity test's tolerances). After fusion no BatchNorm is left
-    outside the pixel decoder, and each VGGBlock is one 3x3 conv."""
+    """det+seg: the serving fold (``fold_for_serving``, fp32) against the
+    unfused port model and against JAX ``convert_to_deploy`` on the same
+    weights, queries aligned by box (test_serving.py:24: boxes rtol 2e-3,
+    atol 2e-4; logits and masks at the model parity test's tolerances).
+    After the fold every BatchNorm is a ``FoldedBatchNorm2d`` and every
+    VGGBlock a ``FoldedVGGBlock`` (one 3x3 conv)."""
     from dfine_tpu.infer.fuse import convert_to_deploy as jax_deploy
 
-    from dfine_tpu_torch.infer.fuse import convert_to_deploy
+    from dfine_tpu_torch.infer.fuse import FoldedBatchNorm2d, FoldedVGGBlock, fold_for_serving
     from dfine_tpu_torch.models.layers import BatchNorm2d, VGGBlock
 
     jmodel, variables = _setup(3, True, 34)
@@ -170,11 +171,13 @@ def test_deploy_fusion_matches_unfused_and_jax():
     unfused = port_model_from(variables, "n", 3, True)
     with torch.no_grad():
         before = unfused(_nchw(x))
-        fused = convert_to_deploy(unfused)
+        fused = fold_for_serving(unfused, torch.float32)
         after = fused(_nchw(x))
-    left = [n for n, m in fused.named_modules() if isinstance(m, BatchNorm2d)]
-    assert left and all(n.startswith("decoder.pixel_decoder.") for n in left), left
-    assert all(m.conv2 is None for m in fused.modules() if isinstance(m, VGGBlock))
+    mods = list(fused.modules())
+    assert any(isinstance(m, BatchNorm2d) for m in mods)
+    assert all(type(m) is FoldedBatchNorm2d for m in mods if isinstance(m, BatchNorm2d))
+    assert any(isinstance(m, VGGBlock) for m in mods)
+    assert all(type(m) is FoldedVGGBlock for m in mods if isinstance(m, VGGBlock))
     _compare(before, after, box_tol=(2e-4, 2e-3))
     jfused = jax.tree.map(jnp.asarray, jax_deploy(jax.tree.map(np.asarray, variables)))
     ref = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(jfused, jnp.asarray(x))

@@ -24,7 +24,7 @@ _CACHE = {}
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
     """Re-drawn n det+seg weights as the JAX npz, and ``export_model``'s
-    artifacts of them (deploy-fused, fp32, on the CPU)."""
+    artifacts of them (the serving fold, fp32, on the CPU)."""
     from dfine_tpu.utils.checkpoint import save_params_npz
 
     from dfine_tpu_torch.export import export_model
@@ -94,13 +94,14 @@ def _decode_np(out):
 
 
 def test_export_round_trip_and_dynamic_batch(weights):
-    """``export_model``: the ``.pt2`` loads and answers as the eager
-    (deploy-fused) model on the same input, bit for bit on the CPU; the
-    program calls the custom op; ``ExportedModel`` serves the artifact as
-    ``TorchModel(deploy=True)`` (but for the masks: the program returns all
-    300 in f32, where ``TorchModel`` ships the top 100 in bf16, as in JAX);
-    the npz holds the JAX variables it came from; a dynamic-batch export
-    runs at batch 1 and 3."""
+    """``export_model``: the ``.pt2`` loads and answers as ``TorchModel``'s
+    model (the serving fold) on the same input through ``ServingProgram``,
+    bit for bit on the CPU; the program calls the custom op;
+    ``ExportedModel`` serves the artifact as ``ExportedModel`` without one
+    (exported in process), bit for bit, and as ``TorchModel`` (but for the
+    masks: the program returns all 300 in f32, where ``TorchModel`` ships
+    the top 100 in bf16, as in JAX); the npz holds the JAX variables it
+    came from; a dynamic-batch export runs at batch 1 and 3."""
     from flax import traverse_util
 
     from dfine_tpu_torch import ExportedModel, TorchModel
@@ -119,7 +120,7 @@ def test_export_round_trip_and_dynamic_batch(weights):
     assert any("dfine_tpu_torch.ms_deform_attn_fwd" in str(n.target)
                for n in program.graph.nodes if n.op == "call_function")
     kw = dict(conf_thresh=0.3, half=False, enable_mask_head=True, device="cpu")
-    fused = TorchModel("n", weights["path"], 3, IMG, IMG, deploy=True, **kw)
+    fused = TorchModel("n", weights["path"], 3, IMG, IMG, **kw)
     x = torch.from_numpy(np.random.default_rng(1).uniform(size=(1, 3, IMG, IMG)).astype(np.float32))
     with torch.no_grad():
         ref = _decode_np(ServingProgram(fused.model)(x))
@@ -127,8 +128,12 @@ def test_export_round_trip_and_dynamic_batch(weights):
     for k in ref:
         np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
     served = ExportedModel("n", None, 3, IMG, IMG, artifact_path=str(arts["exported"]), **kw)
+    in_process = ExportedModel("n", weights["path"], 3, IMG, IMG, **kw)
     frame = _frames(1)[0]
-    _same(served(frame)[0], fused(frame)[0], frame.shape[:2], masks=False)
+    from_file, exported_here = served(frame)[0], in_process(frame)[0]
+    for k in from_file:
+        np.testing.assert_array_equal(from_file[k], exported_here[k], err_msg=k)
+    _same(from_file, fused(frame)[0], frame.shape[:2], masks=False)
 
     dyn = make_exported(fused.model, (IMG, IMG), dynamic_batch=True).module()
     for b in (1, 3):

@@ -63,17 +63,17 @@ def _nchw(images):
 
 
 def test_extra_level_deploy_fusion_and_served_weights(tmp_path):
-    """``convert_to_deploy`` folds the extra level's BatchNorm into its
-    conv: the fused model against the unfused one and against JAX's
-    ``convert_to_deploy`` on the same weights, aligned by box, within
-    SET_TOL (the fold reorders f32 sums, and top-k may then order near-tied
-    queries otherwise). ``TorchModel``
+    """The serving fold (``fold_for_serving``, fp32) folds the extra level's
+    BatchNorm into its conv: the folded model against the unfused one and
+    against JAX's ``convert_to_deploy`` on the same weights, aligned by box,
+    within SET_TOL (the fold reorders f32 sums, and top-k may then order
+    near-tied queries otherwise). ``TorchModel``
     with ``cfg_overrides`` takes the port's weights written as ``.npz`` and
     holds the same tensors (bit-equal)."""
     from dfine_tpu.infer.fuse import convert_to_deploy as jax_deploy
 
     from dfine_tpu_torch import TorchModel
-    from dfine_tpu_torch.infer.fuse import convert_to_deploy
+    from dfine_tpu_torch.infer.fuse import FoldedBatchNorm2d, FoldedConv2d, fold_for_serving
     from dfine_tpu_torch.utils.checkpoint import port_variables
 
     jmodel, variables = _variant(EXTRA)
@@ -83,10 +83,10 @@ def test_extra_level_deploy_fusion_and_served_weights(tmp_path):
     images, _ = variant_batch(8)
     with torch.no_grad():
         before = port(_nchw(images))
-        fused = convert_to_deploy(port)
+        fused = fold_for_serving(port, torch.float32)
         after = fused(_nchw(images))
-    assert isinstance(fused.decoder.input_proj[2].norm, torch.nn.Identity)
-    assert fused.decoder.input_proj[2].conv.bias is not None
+    assert type(fused.decoder.input_proj[2].norm) is FoldedBatchNorm2d
+    assert type(fused.decoder.input_proj[2].conv) is FoldedConv2d
     compare_sets({k: v.numpy() for k, v in before.items()}, after)
     jfused = jax.tree.map(jnp.asarray, jax_deploy(jax.tree.map(np.asarray, variables)))
     ref = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(jfused, jnp.asarray(images))
@@ -101,9 +101,9 @@ def test_extra_level_deploy_fusion_and_served_weights(tmp_path):
 
 def test_extra_level_pt2_answers_as_the_fused_model(tmp_path):
     """``export_model(..., cfg_overrides=...)`` writes the 3-level model's
-    ``.pt2`` (fp32, deploy-fused, on the CPU): the loaded program answers as
-    ``TorchModel(deploy=True)``'s model through the same serving program,
-    bit for bit, and calls the sampling op."""
+    ``.pt2`` (fp32, on the CPU): the loaded program answers as
+    ``TorchModel``'s model (the serving fold) through the same serving
+    program, bit for bit, and calls the sampling op."""
     from dfine_tpu_torch import TorchModel
     from dfine_tpu_torch.export import ServingProgram, export_model
     from dfine_tpu_torch.utils.checkpoint import port_variables
@@ -119,7 +119,7 @@ def test_extra_level_pt2_answers_as_the_fused_model(tmp_path):
     assert any("dfine_tpu_torch.ms_deform_attn_fwd" in str(n.target)
                for n in program.graph.nodes if n.op == "call_function")
     fused = TorchModel(VARIANT_SIZE, str(npz), VARIANT_CLASSES, VARIANT_IMG, VARIANT_IMG,
-                       half=False, device="cpu", deploy=True, cfg_overrides=EXTRA)
+                       half=False, device="cpu", cfg_overrides=EXTRA)
     x = _nchw(variant_batch(10)[0][:1])
     with torch.no_grad():
         ref, ours = ServingProgram(fused.model)(x), program.module()(x)

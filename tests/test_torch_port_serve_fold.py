@@ -18,7 +18,7 @@ IMG = 160
 NUM_CLASSES = 3
 CASES = {"l": ("l", False), "x_seg": ("x", True)}
 # pairs plus VGGBlock branches folded by one fold: l 169 + 24, x det+seg
-# 227 (222 that the deploy rewrite folds and the pixel decoder's 5) + 24
+# 227 (222 that the JAX package folds and the pixel decoder's 5) + 24
 FOLDS = {"l": 193, "x_seg": 251}
 # backbone ConvBNs with a ReLU and groups 1 (one cuDNN conv-bias-ReLU call on the card)
 RELU_CONVS = {"l": 29, "x_seg": 43}
@@ -77,7 +77,7 @@ def _image(seed=3):
 
 
 def _compare(ref, ours, boxes="pred_boxes", logits="pred_logits", masks="pred_masks"):
-    """test_torch_port_deploy.py's fused-against-unfused rule, queries aligned
+    """test_torch_port_deploy.py's folded-against-unfused rule, queries aligned
     by box (>= 98 % 1:1): boxes atol 2e-4, rtol 2e-3; logits atol 2e-3, rtol
     1e-2; masks atol 1e-3, and one bf16 step (rtol 2^-7) where the decode
     rounds them to bf16."""
@@ -174,40 +174,48 @@ def test_strict_load_after_build_refolds(case, tmp_path_factory):
 @pytest.mark.parametrize("case", list(CASES))
 def test_bf16_fold_is_rounded_once(case, tmp_path_factory):
     """bf16: each folded weight and bias equals the fp32 fold rounded once
-    to bf16, at the build (the deploy rewrite's conv weights, and for the
-    pixel decoder ``fold`` itself) and after a load (from the incoming fp32
+    to bf16, at the build and after a load, the fp32 fold taken by ``fold``
+    and ``merge_branch`` over the state dict (from the incoming fp32
     values, not the stored bf16 weights: folding those differs in a share
     of the elements)."""
     from dfine_tpu_torch import TorchModel
-    from dfine_tpu_torch.infer.fuse import (FoldedConv2d, FoldedConvTranspose2d, convert_to_deploy,
-                                            fold)
+    from dfine_tpu_torch.infer.fuse import (FoldedConv2d, FoldedConvTranspose2d, FoldedVGGBlock,
+                                            fold, merge_branch)
 
     unfused, path, b = _setup(case, tmp_path_factory)
     served = _backend(TorchModel, case, path, half=True).model
-    deploy = dict(convert_to_deploy(draw(*CASES[case], 1)).named_modules())
     pix = "decoder.pixel_decoder."
     pix_bn = {"lateral.0": "bn.0", "lateral.1": "bn.1", "lateral.2": "bn.2", "enc_proj": "enc_bn",
               "upconv": "bn1"}
 
-    def pixel_fold(name, sd):
-        conv, bn = name[len(pix):], pix + pix_bn[name[len(pix):]]
-        return fold(sd[name + ".weight"], None, sd[bn + ".weight"], sd[bn + ".bias"],
-                    sd[bn + ".running_mean"], sd[bn + ".running_var"], served.get_submodule(bn).eps,
-                    dim=1 if conv == "upconv" else 0)
+    def pair(sd, conv, bn, dim=0):
+        return fold(sd[conv + ".weight"], sd.get(conv + ".bias"), sd[bn + ".weight"],
+                    sd[bn + ".bias"], sd[bn + ".running_mean"], sd[bn + ".running_var"],
+                    served.get_submodule(bn).eps, dim)
+
+    def expected(name, sd):
+        """The fp32 fold of the folded conv ``name`` from the state dict ``sd``."""
+        if name.startswith(pix):
+            conv = name[len(pix):]
+            return pair(sd, name, pix + pix_bn[conv], dim=1 if conv == "upconv" else 0)
+        block = name[: -len(".conv1.conv")]
+        if name.endswith(".conv1.conv") and type(served.get_submodule(block)) is FoldedVGGBlock:
+            return merge_branch(*pair(sd, f"{block}.conv1.conv", f"{block}.conv1.norm"),
+                                *pair(sd, f"{block}.conv2.conv", f"{block}.conv2.norm"))
+        owner = name[: -len(".conv")]
+        return pair(sd, name, owner + (".bn" if owner + ".bn.weight" in sd else ".norm"))
 
     folded = {n: m for n, m in served.named_modules()
               if isinstance(m, (FoldedConv2d, FoldedConvTranspose2d))}
     assert len(folded) == FOLDS[case] - 2 * 24  # a VGGBlock's two pairs and branch: one conv
     for n, m in folded.items():
-        w, bias = (pixel_fold(n, unfused.state_dict()) if n.startswith(pix)
-                   else (deploy[n].weight, deploy[n].bias))
+        w, bias = expected(n, unfused.state_dict())
         assert torch.equal(m.folded_weight, w.to(torch.bfloat16)), n
         assert torch.equal(m.folded_bias, bias.to(torch.bfloat16)), n
     served.load_state_dict(b, strict=True)
-    deploy = dict(convert_to_deploy(draw(*CASES[case], 2)).named_modules())
     stored, twice = served.state_dict(), 0
     for n, m in folded.items():
-        w, bias = pixel_fold(n, b) if n.startswith(pix) else (deploy[n].weight, deploy[n].bias)
+        w, bias = expected(n, b)
         assert torch.equal(m.folded_weight, w.to(torch.bfloat16)), n
         assert torch.equal(m.folded_bias, bias.to(torch.bfloat16)), n
         if not n.startswith(pix) and not n.endswith("conv1.conv"):  # one pair: fold the bf16

@@ -89,10 +89,9 @@ def test_wide_tail_serves_and_deploys(tmp_path):
     (``.npz``, strict: the tail's tensors included) and serves eval, which
     stops at ``eval_idx``: its outputs equal those of the port model under
     the same serving fold on the same input (bit-equal: the same layers and
-    folded weights). The served model and the deploy-fused one each within
-    SET_TOL of the unfused port model's outputs, aligned by box (the fold
-    reorders f32 sums, and top-k may then order near-tied queries
-    otherwise)."""
+    folded weights), and lie within SET_TOL of the unfused port model's
+    outputs, aligned by box (the fold reorders f32 sums, and top-k may then
+    order near-tied queries otherwise)."""
     import copy
 
     from dfine_tpu_torch import TorchModel
@@ -105,21 +104,16 @@ def test_wide_tail_serves_and_deploys(tmp_path):
     npz = tmp_path / "wide.npz"
     np.savez(npz, **port_variables(port))
     x = torch.from_numpy(variant_batch(9)[0][:1].transpose(0, 3, 1, 2).copy())
-    outs = {}
-    for deploy in (False, True):
-        served = TorchModel(VARIANT_SIZE, str(npz), VARIANT_CLASSES, VARIANT_IMG, VARIANT_IMG,
-                            half=False, device="cpu", deploy=deploy, cfg_overrides=WIDE)
-        with torch.no_grad():
-            outs[deploy] = served.model(x)
-            if not deploy:
-                ref = fold_for_serving(copy.deepcopy(port), torch.float32)(x)
-                for k in ref:
-                    assert torch.equal(outs[deploy][k], ref[k]), k
-                assert decode(served.model, x, 300)["boxes"].shape == (1, 300, 4)
+    served = TorchModel(VARIANT_SIZE, str(npz), VARIANT_CLASSES, VARIANT_IMG, VARIANT_IMG,
+                        half=False, device="cpu", cfg_overrides=WIDE)
     with torch.no_grad():
+        out = served.model(x)
+        ref = fold_for_serving(copy.deepcopy(port), torch.float32)(x)
+        for k in ref:
+            assert torch.equal(out[k], ref[k]), k
+        assert decode(served.model, x, 300)["boxes"].shape == (1, 300, 4)
         unfused = {k: v.numpy() for k, v in port(x).items()}
-    for deploy in (False, True):
-        compare_sets(unfused, outs[deploy])
+    compare_sets(unfused, out)
 
 
 # ---------------------------------------------------------- head dim 64 --
