@@ -509,7 +509,7 @@ def profile_window(fn, n: int, top: int = 8) -> dict:
                      for e in rows
                      if any(k in e.key for k in ("ms_deform_attn_fwd_kernel",
                                                  "ms_deform_attn_bwd_kernel", "rows_scatter_add",
-                                                 "hungarian_lap_kernel"))}}
+                                                 "hungarian_lap_kernel", *BN_SYMBOLS))}}
 
 
 def timings(prefix: str, fn, iters: int) -> dict:
@@ -913,6 +913,27 @@ KERNEL_SYMBOLS = {"ms_deform_attn_fwd": "ms_deform_attn_fwd_kernel",
                   "rows_scatter_add_mxu": "rows_scatter_add_mma_kernel",
                   "rows_scatter_add_tiled": "rows_scatter_add_tile_sorted_kernel",
                   "hungarian_lap": "hungarian_lap_kernel"}
+
+
+# the BatchNorm kernels (batch_norm_train): each launches once a BatchNorm
+# and step, every BatchNorm of the model taking all four
+BN_SYMBOLS = ("batch_norm_stats_kernel", "batch_norm_apply_kernel",
+              "batch_norm_grad_sums_kernel", "batch_norm_grad_apply_kernel")
+
+
+def replayed_bn_launches(fn, calls: int) -> dict:
+    """Each BatchNorm kernel's launches in ``calls`` calls of ``fn``, counted
+    by its symbol in the profiler's device trace (a replay runs them with no
+    Python launch)."""
+    counts = _device_counts(fn, calls)
+    return {sym: sum(n for k, n in counts.items() if re.search(rf"\b{sym}\b", k))
+            for sym in BN_SYMBOLS}
+
+
+def n_batch_norms(model) -> int:
+    from dfine_tpu_torch.models.layers import BatchNorm2d
+
+    return sum(isinstance(m, BatchNorm2d) for m in model.modules())
 
 
 def replayed_launches(fn, calls: int) -> dict:
@@ -1622,6 +1643,9 @@ def phase_train(res):
     # what TRAIN_STEPS more replays ran on the card, counted in its device trace
     total = replayed_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
     res["train_counts"], res["train_graph_launches"] = total, graph_launches
+    bn_total = replayed_bn_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
+    bn_want = {sym: n_batch_norms(state.model) * TRAIN_STEPS for sym in BN_SYMBOLS}
+    res["train_bn_counts"] = bn_total
     solver_events = []  # CUDA events around the solver: eager steps (a replay runs no Python)
     with timed_matching(solver_events):
         for _ in range(SOLVER_EAGER_STEPS):
@@ -1640,7 +1664,8 @@ def phase_train(res):
           "step_p50_ms": p50, "step_p90_ms": p90, "metrics_first": metrics[0],
           "metrics_last": metrics[-1], "graph_launches": graph_launches,
           "python_launches_per_replay": per_step[0],
-          "launches_in_profiled_replays": total, "hungarian_device_per_step": solver,
+          "launches_in_profiled_replays": total, "bn_launches_in_profiled_replays": bn_total,
+          "hungarian_device_per_step": solver,
           "params_moved": moved, "ema_moved": ema_moved,
           "n_params": len(p0), "losses_finite": finite, "grads_finite": grads_finite})
     prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
@@ -1650,6 +1675,7 @@ def phase_train(res):
     emit({"phase": "train_profile", "what": "one train step",
           "hungarian_device_per_step": solver, **prof})
     res["train_bwd_turns"] = bwd_turns(lambda: (step.eager(state, batch, gen), sync()))
+    res["train_bn_calls"] = _bn_calls(lambda: (step.eager(state, batch, gen), sync()), state.model)
     emit({"phase": "train_bwd_turns", "what": "one eager train step with the deform "
           "backward's kernel and with its plain closed form, in turns (profiler)",
           **res["train_bwd_turns"]})
@@ -1661,10 +1687,11 @@ def phase_train(res):
     res["train_run"] = (state, step.eager, batch, gen)
     bad = [c for c in per_step if any(c.values())]
     replays_want = {k: n * TRAIN_STEPS for k, n in want.items()}
-    if (bad or graph_launches != want or total != replays_want or not finite
-            or not grads_finite):
+    if (bad or graph_launches != want or total != replays_want or bn_total != bn_want
+            or not finite or not grads_finite):
         raise AssertionError(f"train: graph launches {graph_launches} (want {want}), in "
                              f"{TRAIN_STEPS} profiled replays {total} (want {replays_want}), "
+                             f"BatchNorm kernels {bn_total} (want {bn_want}), "
                              f"Python launches in a replay {bad[:1]}, finite {finite}, grads "
                              f"finite {grads_finite}")
     if moved < 0.9 * len(p0) or ema_moved < 0.9 * len(p0):
@@ -1844,6 +1871,230 @@ def _no_pending(costs, valid):
     out = costs.clone()
     out[..., rows, rows] = costs.min(-1).values - 1.0
     return torch.where(valid[None, :, :, None], out, costs)
+
+
+def _bn_calls(fn, model) -> list:
+    """(shape, dtype, act) of every BatchNorm call in one call of ``fn``, in
+    order."""
+    from dfine_tpu_torch.models.layers import BatchNorm2d
+
+    calls = []
+
+    def hook(_, args):
+        calls.append((tuple(args[0].shape), args[0].dtype, args[1] if len(args) > 1 else None))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm2d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def _bn_leaves(call, seed: int):
+    """Seeded inputs of one BatchNorm call: (x, dy, weight, bias,
+    running_mean, running_var, num_batches_tracked, act), x, weight and
+    bias leaves that take gradients, x and dy NCHW-contiguous."""
+    import torch
+
+    shape, dtype, act = call
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x, dy = ((torch.randn(shape, generator=g, device=DEV) * scale + shift).to(dtype)
+             for scale, shift in ((2.0, 0.5), (1.0, 0.0)))
+    c = shape[1]
+    w = torch.randn(c, generator=g, device=DEV) * 0.5 + 1
+    b = torch.randn(c, generator=g, device=DEV) * 0.3
+    stats = (torch.randn(c, generator=g, device=DEV), torch.rand(c, generator=g, device=DEV) + 0.5,
+             torch.zeros((), dtype=torch.int64, device=DEV))
+    return (x.requires_grad_(True), dy, w.requires_grad_(True), b.requires_grad_(True),
+            *stats, act)
+
+
+def bn_library(x, weight, bias, running_mean, running_var, num_batches_tracked, momentum, eps,
+               act=None):
+    """The library's yardstick for ``batch_norm_train``: the one call
+    ``F.batch_norm`` makes (``torch._batch_norm_impl_index``: cuDNN or
+    PyTorch's own kernel) on the activations' dtype with the f32 parameters,
+    the running statistics updated from its saved mean and invstd (the
+    biased variance, as flax keeps it), then the activation as an op."""
+    import torch
+
+    from dfine_tpu_torch.ops.kernels.batch_norm import _PLAIN_ACTS, update_running_stats
+
+    y, mean, invstd, _, _ = torch._batch_norm_impl_index(
+        x, weight, bias, None, None, True, 0.0, eps, torch.backends.cudnn.enabled)
+    with torch.no_grad():
+        update_running_stats(running_mean, running_var, num_batches_tracked, mean,
+                             invstd.pow(-2) - eps, momentum)
+    return _PLAIN_ACTS[act](y)
+
+
+def _bn_pass(fn, leaves) -> list:
+    """One forward and backward of ``fn`` (``batch_norm_train``, its plain
+    version or ``bn_library``) a call: [(y, dx, grad_weight, grad_bias)]."""
+    out = []
+    for x, dy, w, b, rm, rv, nbt, act in leaves:
+        x.grad = w.grad = b.grad = None
+        y = fn(x, w, b, rm, rv, nbt, 0.1, 1e-5, act)
+        y.backward(dy)
+        out.append((y.detach(), x.grad, w.grad, b.grad))
+    return out
+
+
+def bn_hbm_bytes(calls, l2_bytes: int) -> int:
+    """The bytes the four kernels must move through device memory for
+    ``calls``, forward and backward: x read and y written, x and dy read
+    and dx written, once each (10 bytes a bf16 element); and x (forward) or
+    x and dy (backward) read a second time where they do not fit in the L2
+    (16 bytes a bf16 element), as ``csrc/batch_norm_train.cu``'s bound."""
+    total = 0
+    for shape, dtype, _ in calls:
+        size = math.prod(shape) * (2 if str(dtype) == "torch.bfloat16" else 4)
+        total += 5 * size + size * (size >= l2_bytes) + 2 * size * (2 * size >= l2_bytes)
+    return total
+
+
+def bn_check(call, seed: int) -> dict:
+    """The kernels against the plain chain on seeded inputs of one call's
+    shape: z (no activation) against the chain's (the share equal, the
+    share off by more than a rounding of the dtype plus a floor of 2^-16 of
+    the largest), y against PyTorch's activation of the kernels' own z (the
+    share equal), each gradient's distance from its f64 value over twice
+    the chain's plus a floor of f32 rounding (over 1 fails), the running
+    mean and variance against the chain's over f32 rounding (1e-5 relative
+    plus 1e-5; over 1 fails), ``num_batches_tracked`` of both, and the
+    launches of one call."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfine_tpu_torch.ops.kernels.batch_norm import (batch_norm_train, batch_norm_train_grads,
+                                                        batch_norm_train_plain)
+
+    leaves = _bn_leaves(call, seed)
+    x, dy, w, b, rm, rv, nbt, act = leaves
+
+    def own_stats():  # each run updates its own copy of the running statistics
+        return (*leaves[:4], rm.clone(), rv.clone(), nbt.clone(), act)
+
+    ours_leaves, plain_leaves = own_stats(), own_stats()
+    launches = batch_norm_train.launches
+    ours = _bn_pass(batch_norm_train, [ours_leaves])[0]
+    launches = batch_norm_train.launches - launches
+    plain = _bn_pass(batch_norm_train_plain, [plain_leaves])[0]
+    z, z_ref = (_bn_pass(fn, [(*own_stats()[:-1], None)])[0][0]
+                for fn in (batch_norm_train, batch_norm_train_plain))
+    rel = 2.0 ** -7 if call[1] == torch.bfloat16 else 1e-5
+    z32, zr32 = z.float(), z_ref.float()
+    off = (z32 - zr32).abs() > rel * zr32.abs() + 2.0 ** -16 * zr32.abs().max()
+    want = {None: z, "relu": F.relu(z), "silu": F.silu(z)}[act]
+    x64, dy64 = x.detach().double(), dy.double()
+    var, mean = torch.var_mean(x64, dim=(0, 2, 3), correction=0)
+    invstd = 1 / torch.sqrt(var + 1e-5)
+    truth = batch_norm_train_grads(x64, dy64, w.detach().double(), b.detach().double(), mean,
+                                   invstd, act)
+    xhat = (x64 - mean.view(1, -1, 1, 1)) * invstd.view(1, -1, 1, 1)
+    floors = (truth[0].norm(), (dy64 * xhat).abs().sum((0, 2, 3)).norm(),
+              dy64.abs().sum((0, 2, 3)).norm())
+    grads = {name: float((o.double() - t).norm()
+                         / (2 * (p.double() - t).norm() + 1e-6 * f))
+             for name, o, p, t, f in zip(("dx", "grad_weight", "grad_bias"), ours[1:], plain[1:],
+                                         truth, floors)}
+    stats = {name: float(((o - p).abs() / (1e-5 + 1e-5 * p.abs())).max())
+             for name, o, p in (("running_mean", ours_leaves[4], plain_leaves[4]),
+                                ("running_var", ours_leaves[5], plain_leaves[5]))}
+    return {"launches": launches, "z_equal_share": float((z == z_ref).float().mean()),
+            "z_off_share": float(off.float().mean()),
+            "y_act_equal_share": float((ours[0] == want).float().mean()), **grads, **stats,
+            "num_batches_tracked": (int(ours_leaves[6]), int(plain_leaves[6]))}
+
+
+def bn_check_fails(g: dict, dtype) -> bool:
+    import torch
+
+    return (g["launches"] != 4 or g["z_off_share"] > 0 or g["y_act_equal_share"] < 0.999
+            or (dtype == torch.bfloat16 and g["z_equal_share"] < 0.99)
+            or max(g["dx"], g["grad_weight"], g["grad_bias"]) > 1
+            or max(g["running_mean"], g["running_var"]) > 1 or g["num_batches_tracked"] != (1, 1))
+
+
+def _bn_in_situ_ms(prof_ours: dict) -> float:
+    """The four kernels' device ms a step in a profile of one step."""
+    return sum(v["ms_per_launch"] * v["count_per_call"] for k, v in prof_ours.items()
+               if any(sym in k for sym in BN_SYMBOLS))
+
+
+def phase_batch_norm(res):
+    """The BatchNorm kernels at the train steps' own shapes: the m detect
+    step (phase_train), the m det+seg step (phase_train_seg) and the l
+    detect step at batch 8 (built here, bf16, its CUDA graph replayed);
+    each call's shape, dtype and activation from one eager step; every
+    distinct one of the three against the plain version (the replaced
+    chain), forward, backward and running statistics. For each step's calls
+    alone, in turns: the kernels, the library's one call (``bn_library``)
+    and the replaced chain (profiler device ms, a step); in situ, the four
+    kernels' device ms in a profiled replay of each step; the bound, the
+    bytes that must cross memory (``bn_hbm_bytes``: 10 bytes a bf16 element
+    where a pass's tensors fit in the L2, 16 above) at 3.35 TB/s."""
+    import torch
+
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.ops.kernels.batch_norm import batch_norm_train, batch_norm_train_plain
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    steps = {"m_detect": (res["train_bn_calls"], _bn_in_situ_ms(res["train_in_situ"])),
+             "m_det_seg": (res["train_seg_bn_calls"], _bn_in_situ_ms(res["train_seg_in_situ"]))}
+    state_l, step_l = _train_setup(torch.bfloat16, model=build_model(L_SIZE, NUM_CLASSES, False,
+                                                                     device=DEV))
+    batch_l = make_train_batch(TRAIN_BATCH, seed=11, device=DEV)
+    for _ in range(TRAIN_WARMUP):
+        step_l(state_l, batch_l, gen)
+    sync()
+    prof = profile_window(lambda: (step_l(state_l, batch_l, gen), sync()), 1, top=12)
+    steps["l_detect"] = (_bn_calls(lambda: (step_l.eager(state_l, batch_l, gen), sync()),
+                                   state_l.model), _bn_in_situ_ms(prof["ours"]))
+    del state_l, step_l, batch_l
+    torch.cuda.empty_cache()
+    distinct = sorted({c for calls, _ in steps.values() for c in calls}, key=str)
+    gaps, failed = {}, []
+    for i, call in enumerate(distinct):
+        g = gaps[str(call)] = bn_check(call, 1000 + i)
+        if bn_check_fails(g, call[1]):
+            failed.append((call, g))
+    torch.cuda.empty_cache()
+    fns = {"kernels": batch_norm_train, "library": bn_library, "chain": batch_norm_train_plain}
+    out = {}
+    for name, (calls, in_situ) in steps.items():
+        leaves = [_bn_leaves(call, 2000 + i) for i, call in enumerate(calls)]
+        turns = {k: [] for k in fns}
+        for which in ("kernels", "library", "chain", "chain", "library", "kernels"):
+            turns[which].append(device_ms(lambda: _bn_pass(fns[which], leaves), iters=3,
+                                          warmup=1))
+        del leaves
+        torch.cuda.empty_cache()
+        elements = sum(math.prod(shape) for shape, *_ in calls)
+        hbm = bn_hbm_bytes(calls, l2)
+        out[name] = {"calls_per_step": len(calls),
+                     "acts": {str(a): sum(c[2] == a for c in calls) for a in {c[2] for c in calls}},
+                     "elements_per_step": elements, "hbm_bytes_per_step": hbm,
+                     "bound_ms": hbm / HBM_BYTES_PER_S * 1e3,
+                     "bound_ms_16_bytes": 16 * elements / HBM_BYTES_PER_S * 1e3,
+                     "in_situ_ms": in_situ, "alone_ms": turns["kernels"],
+                     "library_ms": turns["library"], "chain_ms": turns["chain"]}
+    worst = {k: max(g[k] for g in gaps.values())
+             for k in ("z_off_share", "dx", "grad_weight", "grad_bias", "running_mean",
+                       "running_var")}
+    worst.update({k: min(g[k] for g in gaps.values())
+                  for k in ("z_equal_share", "y_act_equal_share")})
+    res["batch_norm"] = {"steps": out, "distinct_calls": len(gaps), "l2_bytes": l2,
+                         "worst": worst}
+    emit({"phase": "batch_norm", "what": f"the BatchNorms of the m detect, m det+seg and l "
+          f"detect train steps at batch {TRAIN_BATCH}: kernels against the plain chain and the "
+          "library's one call", **res["batch_norm"]})
+    if failed:
+        raise AssertionError(f"batch_norm: {failed[:4]}")
 
 
 def phase_hungarian(res):
@@ -2478,6 +2729,9 @@ def phase_train_seg(res):
     # what TRAIN_STEPS more replays ran on the card, counted in its device trace
     total = replayed_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
     res["train_seg_counts"] = total
+    bn_total = replayed_bn_launches(lambda: step(state, batch, gen), TRAIN_STEPS)
+    bn_want = {sym: n_batch_norms(state.model) * TRAIN_STEPS for sym in BN_SYMBOLS}
+    res["train_seg_bn_counts"] = bn_total
     first, last = ({k: float(v) for k, v in t_.items()} for t_ in (terms[0], terms[-1]))
     n_dn = DECODER_LAYERS - 1  # with masks the last DN layer is "_dn_final"
     mask_keys = [f"loss_mask_{w}{suf}" for w in ("bce", "dice")
@@ -2497,7 +2751,8 @@ def phase_train_seg(res):
           "steps": TRAIN_STEPS, "step_p50_ms": p50, "step_p90_ms": p90,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
           "graph_launches": graph_launches, "python_launches_per_replay": per_step[0],
-          "launches_in_profiled_replays": total, "loss_terms_first": first,
+          "launches_in_profiled_replays": total, "bn_launches_in_profiled_replays": bn_total,
+          "loss_terms_first": first,
           "loss_terms_last": last,
           "mask_terms_expected": len(mask_keys), "mask_terms_missing": missing,
           "terms_finite": finite, "params_moved": moved, "n_params": len(p0),
@@ -2506,7 +2761,10 @@ def phase_train_seg(res):
     with captured_mask_products([]) as calls:
         step.eager(state, batch, gen)
     sync()
+    res["train_seg_bn_calls"] = _bn_calls(lambda: (step.eager(state, batch, gen), sync()),
+                                          state.model)
     prof = profile_window(lambda: (step(state, batch, gen), sync()), 1, top=12)
+    res["train_seg_in_situ"] = prof["ours"]
     products = _mask_product_ms(calls)
     emit({"phase": "train_seg_profile", "what": "one det+seg train step", **prof,
           "idle_share_at_p50": 1.0 - prof["device_busy_ms"] / p50,
@@ -2515,9 +2773,11 @@ def phase_train_seg(res):
     torch.cuda.empty_cache()
     bad = [c for c in per_step if any(c.values())]
     replays_want = {k: n * TRAIN_STEPS for k, n in want.items()}
-    if bad or graph_launches != want or total != replays_want or missing or not finite:
+    if (bad or graph_launches != want or total != replays_want or bn_total != bn_want
+            or missing or not finite):
         raise AssertionError(f"train_seg: graph launches {graph_launches} (want {want}), in "
                              f"{TRAIN_STEPS} profiled replays {total} (want {replays_want}), "
+                             f"BatchNorm kernels {bn_total} (want {bn_want}), "
                              f"Python launches in a replay {bad[:1]}, mask terms missing "
                              f"{missing}, finite {finite}")
     if (moved < 0.9 * len(p0) or mask_moved != len(mask_part) or ema_moved < 0.9 * len(p0)
@@ -5386,6 +5646,17 @@ def kernel_line(res):
          "registers": bwd_main.get("registers"),
          "stack_frame_bytes": bwd_main.get("stack_frame_bytes"),
          "instances_clean": (res.get("bwd_build") or {}).get("clean")},
+        {"name": "batch_norm_train", "route": "cuda",
+         "source": "dfine_tpu_torch/csrc/batch_norm_train.cu",
+         "replaces": None,  # flax's BatchNorm is XLA's: the library's one call is the yardstick
+         "launches": res["train_bn_counts"],
+         "train_seg_launches": res["train_seg_bn_counts"],
+         "path": f"train, {TRAIN_STEPS} replays at batch {TRAIN_BATCH}, counted in the "
+                 "profiler's device trace (ms: one step's BatchNorms, forward and backward)",
+         **{k: res["batch_norm"]["steps"]["m_detect"][k]
+            for k in ("calls_per_step", "in_situ_ms", "alone_ms", "bound_ms", "library_ms")},
+         "plain_ms": res["batch_norm"]["steps"]["m_detect"]["chain_ms"],
+         "worst": res["batch_norm"]["worst"]},
         {"name": "hungarian_lap", "route": "cuda",
          "source": "dfine_tpu_torch/csrc/hungarian_lap.cu",
          "replaces": "dfine_tpu/ops/hungarian.py:48",  # XLA _solve_one: no Pallas counterpart
@@ -5444,9 +5715,10 @@ def main() -> int:
     for fn in (phase_build, phase_deform_fwd, phase_scatter, phase_scatter_mxu,
                phase_scatter_tiled, phase_core_backward, phase_core_bwd_kernel, phase_model,
                phase_serving,
-               phase_gradient, phase_train, phase_hungarian, phase_scatter_in_situ,
+               phase_gradient, phase_train, phase_hungarian,
+               phase_scatter_in_situ,
                phase_train_bwd_variants,
-               phase_train_parity, phase_train_seg, phase_train_seg_parity,
+               phase_train_parity, phase_train_seg, phase_batch_norm, phase_train_seg_parity,
                phase_train_l_frozen, phase_wide_tail, phase_extra_level, phase_flat_optim,
                phase_serving_modes, phase_deploy, phase_int8, phase_aot_graph, phase_export,
                phase_trainer, phase_dp, phase_apps):

@@ -12,8 +12,8 @@ intra-op threads in every worker at once) and a producer thread stacks each
 batch. With ``pin_memory`` the
 producer also copies the batch into pinned host tensors, so that
 ``to_device`` is an asynchronous uint8 copy to the card; there the NHWC
-images are permuted to NCHW, which leaves them channels-last in memory (the
-layout the serving path gives the model too).
+images are made NCHW-contiguous, the layout the train step's BatchNorm
+kernels take.
 """
 
 from __future__ import annotations
@@ -58,16 +58,17 @@ def _stack(batch: List[Dict], pin: bool = False) -> Dict:
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict:
-    """A loader batch on ``device``: images [B, 3, H, W] uint8 (a
-    channels-last view of the NHWC copy), labels int64, the other targets in
-    their own dtypes. Pinned tensors copy without blocking the host."""
+    """A loader batch on ``device``: images [B, 3, H, W] uint8,
+    NCHW-contiguous (one uint8 copy of the NHWC batch on the device), labels
+    int64, the other targets in their own dtypes. Pinned tensors copy
+    without blocking the host."""
     def put(a):
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device, non_blocking=t.is_pinned())
 
     targets = {k: put(v) for k, v in batch["targets"].items()}
     targets["labels"] = targets["labels"].long()
-    return {"images": put(batch["images"]).permute(0, 3, 1, 2), "targets": targets}
+    return {"images": put(batch["images"]).permute(0, 3, 1, 2).contiguous(), "targets": targets}
 
 
 class BatchIterator:

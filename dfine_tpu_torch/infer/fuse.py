@@ -36,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import BatchNorm2d, ConvBN, VGGBlock
+from ..models.layers import BatchNorm2d, ConvBN, VGGBlock, get_activation
 from ..utils.profiling import count
 
 
@@ -97,10 +97,11 @@ class FoldedConvBNReLU(ConvBN):
 
 
 class FoldedBatchNorm2d(BatchNorm2d):
-    """An eval BatchNorm folded into the conv before it: the identity."""
+    """An eval BatchNorm folded into the conv before it: the identity, then
+    the activation its caller passes."""
 
-    def forward(self, x):
-        return x
+    def forward(self, x, act=None):
+        return get_activation(act)(x)
 
 
 class FoldedVGGBlock(VGGBlock):
@@ -176,7 +177,7 @@ def fold_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
                 owner.get_submodule(bn).__class__ = FoldedBatchNorm2d
         if isinstance(owner, VGGBlock):
             owner.__class__ = FoldedVGGBlock
-        elif isinstance(owner, ConvBN) and owner.act is F.relu and owner.conv.groups == 1:
+        elif isinstance(owner, ConvBN) and owner.act == "relu" and owner.conv.groups == 1:
             owner.__class__ = FoldedConvBNReLU
         hook = functools.partial(_refold, units)
         owner.register_load_state_dict_pre_hook(hook)

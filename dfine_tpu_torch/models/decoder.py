@@ -239,7 +239,7 @@ class MaskPixelDecoder(nn.Module):
             x = x + F.interpolate(t, size=size, mode="bilinear", align_corners=False)
         e = self.enc_bn(self.enc_proj(enc_feat))
         x = x + F.interpolate(e, size=size, mode="bilinear", align_corners=False)
-        return F.relu(self.bn1(self.upconv(x)))
+        return self.bn1(self.upconv(x), "relu")
 
 
 class DFINETransformer(nn.Module):
@@ -462,7 +462,10 @@ class DFINETransformer(nn.Module):
         mask_feat = embeds = None
         if self.enable_mask_head:
             h0, w0 = spatial_shapes[0]
-            mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0)
+            # NCHW-contiguous, as the encoder hands its maps on: on the card a
+            # conv keeps a channels-last input's layout, which the train-mode
+            # BatchNorm after it does not take
+            mem0 = memory[:, : h0 * w0].transpose(1, 2).reshape(b, hd, h0, w0).contiguous()
             mask_feat = self.pixel_decoder(inner_feats, mem0)  # [B, C, Hm, Wm]
             embeds = [self.mask_head(h) for h in dec_hs]  # row-wise: DN and matching alike
         if not train:

@@ -1,9 +1,12 @@
 """Shared building blocks (port of ``dfine_tpu/models/layers.py``), NCHW.
 
 Submodule names give ``state_dict()`` the reference (uc-vision) key layout.
-Norms are fp32 islands whatever the compute dtype, as in the JAX package:
-``BatchNorm2d`` and ``LayerNorm`` below take their input in fp32 and return
-the input's dtype; their parameters and statistics stay fp32.
+Norms compute in fp32 whatever the compute dtype, as in the JAX package:
+``BatchNorm2d`` and ``LayerNorm`` below return the input's dtype; their
+parameters and statistics stay fp32. In train mode without SyncBN a
+``BatchNorm2d`` runs ``ops.kernels.batch_norm_train`` (on the card
+hand-written kernels that apply the activation after it too; on the CPU
+the plain fp32 chain).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.kernels.batch_norm import ACTS, batch_norm_train, update_running_stats
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -62,24 +67,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     the running statistics in ``train()`` mode: momentum 0.9 in flax's sense
     (torch's ``momentum=0.1``) and the *biased* batch variance, where torch's
     own BatchNorm stores the unbiased one. Under SyncBN (``set_bn_axis``)
-    the statistics are those of the global batch (``_sync_forward``)."""
+    the statistics are those of the global batch (``_sync_forward``);
+    without it ``batch_norm_train`` (kernels on the card, the plain chain on
+    the CPU)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        """``act``: the name of the activation that follows (None: none),
+        applied here; in train mode without SyncBN the kernels apply ReLU and
+        SiLU in their own pass."""
+        if self.training and _BN_AXIS is None:
+            fused = act if act in ACTS else None
+            y = batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                 self.num_batches_tracked, self.momentum, self.eps, fused)
+            return y if fused == act else get_activation(act)(y)
         x32 = x.float()
-        if not self.training:
-            return super().forward(x32).to(x.dtype)
-        if _BN_AXIS is not None:
-            return self._sync_forward(x32).to(x.dtype)
-        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
-            self._update_running(mean, var)
-        return y.to(x.dtype)
-
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-        self.num_batches_tracked.add_(1)
+        y = self._sync_forward(x32) if self.training else super().forward(x32)
+        return get_activation(act)(y.to(x.dtype))
 
     def _sync_forward(self, x32: torch.Tensor) -> torch.Tensor:
         """Statistics over every rank's rows: the fp32 sum, sum of squares
@@ -99,7 +102,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = stats[:c] / stats[-1]
         var = (stats[c: 2 * c] / stats[-1] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
-            self._update_running(mean.detach(), var.detach())
+            update_running_stats(self.running_mean, self.running_var, self.num_batches_tracked,
+                                 mean.detach(), var.detach(), self.momentum)
         scale = self.weight * torch.rsqrt(var + self.eps)
         return x32 * scale[:, None, None] + (self.bias - mean * scale)[:, None, None]
 
@@ -139,8 +143,7 @@ class ConvBN(nn.Module):
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, _padding(kernel, padding),
                               groups=groups, bias=False)
         self.bn = BatchNorm2d(out_ch)
-        self.has_act = act is not None
-        self.act = get_activation(act)
+        self.act = act
         self.lab = LearnableAffine() if (act is not None and use_lab) else None
 
     def bn_pairs(self) -> Tuple[Tuple[str, str], ...]:
@@ -149,12 +152,8 @@ class ConvBN(nn.Module):
         return (("conv", "bn"),)
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
-        if self.has_act:
-            x = self.act(x)
-            if self.lab is not None:
-                x = self.lab(x)
-        return x
+        x = self.bn(self.conv(x), self.act)
+        return x if self.lab is None else self.lab(x)
 
 
 class ConvBNA(nn.Module):
@@ -166,13 +165,13 @@ class ConvBNA(nn.Module):
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, _padding(kernel, padding),
                               groups=groups, bias=bias)
         self.norm = BatchNorm2d(out_ch)
-        self.act = get_activation(act)
+        self.act = act
 
     def bn_pairs(self) -> Tuple[Tuple[str, str], ...]:
         return (("conv", "norm"),)
 
     def forward(self, x):
-        return self.act(self.norm(self.conv(x)))
+        return self.norm(self.conv(x), self.act)
 
 
 class ConvNorm(nn.Sequential):

@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels (sources in ``dfine_tpu_torch/csrc``), each
-beside its plain PyTorch version and with a launch counter on its wrapper."""
+beside its plain PyTorch version and with a launch counter on its wrapper.
+``WRAPPERS`` are those whose launches a step or a frame makes a fixed
+number of (``launch_counts``); ``batch_norm_train`` launches four times a
+BatchNorm of the model and keeps its own count."""
 
+from .batch_norm import batch_norm_train  # noqa: F401
 from .deform_attn import (HEAD_DIMS, MAX_LEVELS, MAX_POINTS, ms_deform_attn_bwd,  # noqa: F401
                           ms_deform_attn_bwd_plain, ms_deform_attn_fwd, ms_deform_attn_fwd_plain,
                           ms_deform_attn_op)

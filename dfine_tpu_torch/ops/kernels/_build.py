@@ -20,7 +20,8 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "rows_scatter_add_tile", "hungarian_lap")
+SOURCES = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "rows_scatter_add_tile", "hungarian_lap",
+           "batch_norm_train")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _locks = {name: threading.Lock() for name in SOURCES}

@@ -6,6 +6,7 @@ The CPU tests hold the plain versions against JAX."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_port_deform_cases import DEFORM_CASES, TILING_CASES, deform_case, tiling_case
 from test_torch_port_hungarian_cases import (CASES, SIZE_CASES, assert_optimal, cap_rows,
@@ -997,7 +998,11 @@ def test_core_backward_in_a_cuda_graph(cuda):
 # grad norm 5.4e-4, first moment 1.7e-6, BatchNorm statistics 2e-6, the
 # change of the parameters and the EMA 0.022: AdamW's first steps move an
 # element by about lr whatever its gradient's size, so an element whose tiny
-# gradient changes sign between runs moves 2 lr the other way).
+# gradient changes sign between runs moves 2 lr the other way). Every run
+# starts each step from the first run's state before that step: the steps
+# are chaotic (random weights put the matching on near-ties), so two runs
+# that part by a rounding in one step's gradients can take another matching
+# in a later one and read 3 % apart in loss.
 
 GRAPH_SLACK = 4.0
 GRAPH_FLOOR = {torch.float32: {"loss": 1e-4, "grad_norm": 2e-3, "exp_avg": 1e-5, "bn": 1e-5,
@@ -1037,11 +1042,60 @@ def _flat_of(tensors):
     return torch.cat([t.detach().float().flatten() for t in tensors])
 
 
-def _steps(fn, state, n=3, seed=0, loaded_at=None):
+def _snapshot(state):
+    """Copies of what a step reads and writes: the model's and the EMA's
+    parameters and buffers, the optimizer's moments and the running mean of
+    an unfinished accumulation."""
+    opt = state.optimizer
+    snap = {"model": [t.clone() for t in state.model.state_dict().values()],
+            "ema": [t.clone() for t in state.ema.state_dict().values()]}
+    if hasattr(opt, "adamw"):
+        snap["moments"] = [{k: v.clone() for k, v in opt.adamw.state[p].items()}
+                           if p in opt.adamw.state else None for p in opt.params]
+        snap["mean"] = [opt._mean[p].clone() if p in opt._mean else None for p in opt.params]
+    else:  # the flat optimizer
+        snap["moments"] = (opt.m.clone(), opt.v.clone())
+        snap["mean"] = None if opt.mean is None else opt.mean.clone()
+    return snap
+
+
+@torch.no_grad()
+def _restore(state, snap):
+    """Copy ``_snapshot``'s tensors into ``state``'s own, in place: a
+    captured graph holds their addresses."""
+    for t, v in zip(state.model.state_dict().values(), snap["model"]):
+        t.copy_(v)
+    for t, v in zip(state.ema.state_dict().values(), snap["ema"]):
+        t.copy_(v)
+    opt = state.optimizer
+    if hasattr(opt, "adamw"):
+        for p, moments, mean in zip(opt.params, snap["moments"], snap["mean"]):
+            for k, v in (moments or {}).items():
+                opt.adamw.state[p][k].copy_(v)
+            if mean is not None:
+                opt._mean[p].copy_(mean)
+    else:
+        opt.m.copy_(snap["moments"][0])
+        opt.v.copy_(snap["moments"][1])
+        if snap["mean"] is not None:
+            opt.mean.copy_(snap["mean"])
+
+
+def _starting_state(state, starts, i):
+    """Before step ``i``: the first run records its state in ``starts``,
+    every later run starts from the first run's."""
+    if len(starts) <= i:
+        starts.append(_snapshot(state))
+    else:
+        _restore(state, starts[i])
+
+
+def _steps(fn, state, starts, n=3, seed=0, loaded_at=None):
     """``n`` steps of ``fn`` on batches 0.. with a CUDA generator seeded
-    ``seed``; after each, the learning rates and the EMA are held to their
-    formulas (fp32). ``loaded_at``: the step before which the optimizer
-    loads its own state dict. Returns the readings."""
+    ``seed``, each from the first run's state before it (``starts``,
+    ``_starting_state``); after each, the learning rates and the EMA are
+    held to their formulas (fp32). ``loaded_at``: the step before which the
+    optimizer loads its own state dict. Returns the readings."""
     from dfine_tpu_torch.train.optim import ema_momentum
 
     dev = state.model.decoder.enc_score_head.weight.device
@@ -1051,6 +1105,7 @@ def _steps(fn, state, n=3, seed=0, loaded_at=None):
     for i in range(n):
         if i == loaded_at:
             opt.load_state_dict(opt.state_dict())
+        _starting_state(state, starts, i)
         ema_before = {k: state.ema.state_dict()[k].clone() for k in floats}
         _, m = fn(state, _graph_batch(dev, 10 + i), gen)
         out["loss"].append(float(m["loss"]))
@@ -1104,8 +1159,8 @@ def _graph_base(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_step_graph_matches_eager(cuda, dtype):
     """Three steps through ``step`` (one capture, three replays) against
-    three through ``step.eager`` on an identical state, and a second eager
-    run as the control: losses and grad norms at each step, AdamW's first
+    three through ``step.eager``, each from the same state, and a second
+    eager run as the control: losses and grad norms at each step, AdamW's first
     moment after step 1, the parameters, BatchNorm statistics and EMA after
     step 3; on every run each step's learning rates are the schedule's and
     the EMA follows its formula. The graph holds the step's kernel
@@ -1116,12 +1171,12 @@ def test_train_step_graph_matches_eager(cuda, dtype):
 
     base = _graph_base(cuda)
     init = _flat_of(base.parameters())
-    runs = {}
+    runs, starts = {}, []
     for name in ("eager", "control", "graph"):
         state, step = _graph_state(base, dtype)
         profiling.drain()
         with profiling.tracing(True):
-            runs[name] = _steps(step if name == "graph" else step.eager, state)
+            runs[name] = _steps(step if name == "graph" else step.eager, state, starts)
             reset_launch_counts()
             (step if name == "graph" else step.eager)(state, _graph_batch(cuda, 20),
                                                       torch.Generator(device=cuda))
@@ -1152,12 +1207,13 @@ def test_train_step_graph_captures_again_after_a_load(cuda):
 
     base = _graph_base(cuda)
     init = _flat_of(base.parameters())
-    runs = {}
+    runs, starts = {}, []
     for name in ("eager", "control", "graph"):
         state, step = _graph_state(base, torch.float32)
         profiling.drain()
         with profiling.tracing(True):
-            runs[name] = _steps(step if name == "graph" else step.eager, state, loaded_at=2)
+            runs[name] = _steps(step if name == "graph" else step.eager, state, starts,
+                                loaded_at=2)
         counters = profiling.drain()["counters"]
         if name == "graph":
             assert (counters.get("train.graph_captures"), counters.get("train.graph_replays"),
@@ -1179,26 +1235,28 @@ def test_train_step_falls_back_to_eager(cuda, kind):
     optim = OptimConfig(epochs=1, steps_per_epoch=8, pct_start=0.5,
                         b_accum_steps=2 if kind == "accumulation" else 1)
     n = 4 if kind == "accumulation" else 3
-    runs = {}
+    runs, starts = {}, []
     for name in ("eager", "control", "step"):
         state, step = _graph_state(base, torch.float32, optim=optim, flat=kind == "flat")
         profiling.drain()
         with profiling.tracing(True):
             if kind == "flat":  # the flat EMA is one lerp_: its own formula, not held here
-                runs[name] = _flat_steps(step if name == "step" else step.eager, state, n)
+                runs[name] = _flat_steps(step if name == "step" else step.eager, state, starts,
+                                         n)
             else:
-                runs[name] = _steps(step if name == "step" else step.eager, state, n)
+                runs[name] = _steps(step if name == "step" else step.eager, state, starts, n)
         counters = profiling.drain()["counters"]
         assert counters.get("train.eager_steps") == n and "train.graph_captures" not in counters
         assert step.graphs == {}
     _hold(runs["step"], runs["eager"], runs["control"], torch.float32, init)
 
 
-def _flat_steps(fn, state, n):
+def _flat_steps(fn, state, starts, n):
     dev = state.model.decoder.enc_score_head.weight.device
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"loss": [], "grad_norm": []}
     for i in range(n):
+        _starting_state(state, starts, i)
         _, m = fn(state, _graph_batch(dev, 10 + i), gen)
         out["loss"].append(float(m["loss"]))
         out["grad_norm"].append(float(m["grad_norm"]))
@@ -1326,3 +1384,191 @@ def test_served_graph_runs_no_batchnorm_and_refolds_on_load(cuda, tmp_path):
         fused, plain = block(y), torch.relu(block.conv(y))
         plain = plain if block.lab is None else block.lab(plain)
     torch.testing.assert_close(fused.float(), plain.float(), rtol=2.0 ** -6, atol=2.0 ** -6)
+
+
+# ------------------------------------------------------------ BatchNorm --
+
+# the train step's own: the stem at 640 px, stride 8, the 20 x 20 tokens; an odd map
+BN_SHAPES = ((8, 32, 320, 320), (8, 256, 80, 80), (8, 1024, 20, 20), (2, 16, 7, 9))
+BN_ACTS = (None, "relu", "silu")
+
+
+def _bn_leaves(dev, shape, dtype, seed=0):
+    """x, dy, weight, bias, running mean and variance: x 2 N(0, 1) + 0.5, in
+    ``dtype``, NCHW-contiguous."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    c = shape[1]
+    return (x, dy, torch.randn(c, generator=g, device=dev) * 0.5 + 1,
+            torch.randn(c, generator=g, device=dev) * 0.3,
+            torch.randn(c, generator=g, device=dev), torch.rand(c, generator=g, device=dev) + 0.5)
+
+
+def _bn_run(fn, x, dy, w, b, rm, rv, act):
+    """One forward and backward of ``fn`` (``batch_norm_train`` or its plain
+    version) on copies: y, the three gradients and the statistics."""
+    rm, rv = rm.clone(), rv.clone()
+    nbt = torch.zeros((), dtype=torch.int64, device=x.device)
+    xi, wi, bi = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = fn(xi, wi, bi, rm, rv, nbt, 0.1, 1e-5, act)
+    y.backward(dy)
+    return {"y": y.detach(), "dx": xi.grad, "gw": wi.grad, "gb": bi.grad, "rm": rm, "rv": rv,
+            "nbt": nbt}
+
+
+def _off(ours, ref, dtype):
+    """Elements of ``ours`` farther from ``ref`` than a rounding of
+    ``dtype`` (relative) plus a floor a share of ``ref``'s largest value:
+    where z lies near 0, its absolute rounding error is many of its ulps."""
+    rel, floor = (2.0 ** -7, 2.0 ** -16) if dtype == torch.bfloat16 else (1e-5, 1e-6)
+    ours, ref = ours.float(), ref.float()
+    return (ours - ref).abs() > rel * ref.abs() + floor * ref.abs().max()
+
+
+def _f64_grads(x, dy, w, b, act):
+    """(dx, grad_weight, grad_bias) at f64 with nothing rounded, and the
+    sums of |terms| of the two parameters' gradients."""
+    from dfine_tpu_torch.ops.kernels.batch_norm import batch_norm_train_grads
+
+    x64, dy64 = x.double(), dy.double()
+    var, mean = torch.var_mean(x64, dim=(0, 2, 3), correction=0)
+    invstd = 1 / torch.sqrt(var + 1e-5)
+    grads = batch_norm_train_grads(x64, dy64, w.double(), b.double(), mean, invstd, act)
+    xhat = (x64 - mean.view(1, -1, 1, 1)) * invstd.view(1, -1, 1, 1)
+    return grads, ((dy64 * xhat).abs().sum((0, 2, 3)), dy64.abs().sum((0, 2, 3)))
+
+
+@pytest.mark.parametrize("act", BN_ACTS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=str)
+def test_batch_norm_kernels_match_plain(cuda, shape, dtype, act):
+    """The four kernels against the plain chain, forward and backward. z
+    (the normalised x, no activation) within a rounding of the chain's
+    everywhere and equal on 99 % of elements in bf16; y the activation of
+    the kernels' z as PyTorch's op computes it (equal on 99.9 %, within a
+    rounding elsewhere: a z one ulp apart moves SiLU by up to 1.1 ulp of z,
+    more than one of y); dx, grad_weight and grad_bias no farther from their
+    f64 values, in norm, than twice the chain's; the running statistics
+    (flax's, biased variance) within f32 rounding; 4 launches; y and dx
+    NCHW-contiguous."""
+    from dfine_tpu_torch.ops.kernels.batch_norm import batch_norm_train, batch_norm_train_plain
+
+    leaves = _bn_leaves(cuda, shape, dtype)
+    launches = batch_norm_train.launches
+    ours = _bn_run(batch_norm_train, *leaves, act)
+    torch.cuda.synchronize()
+    assert batch_norm_train.launches - launches == 4
+    ref = _bn_run(batch_norm_train_plain, *leaves, act)
+    x = leaves[0]
+    assert ours["y"].dtype == dtype and ours["y"].is_contiguous() and ours["dx"].is_contiguous()
+    z, z_ref = (_bn_run(fn, *leaves, None)["y"] for fn in (batch_norm_train,
+                                                            batch_norm_train_plain))
+    assert not _off(z, z_ref, dtype).any()
+    if dtype == torch.bfloat16:
+        assert (z == z_ref).float().mean() >= 0.99
+    want = {None: z, "relu": F.relu(z), "silu": F.silu(z)}[act]
+    assert (ours["y"] == want).float().mean() >= 0.999 and not _off(ours["y"], want, dtype).any()
+    (dx64, gw64, gb64), (gw_terms, gb_terms) = _f64_grads(x, leaves[1], leaves[2], leaves[3],
+                                                          act)
+    for key, truth, floor in (("dx", dx64, dx64.norm()), ("gw", gw64, gw_terms.norm()),
+                              ("gb", gb64, gb_terms.norm())):
+        ours_err = (ours[key].double() - truth).norm()
+        chain_err = (ref[key].double() - truth).norm()
+        assert ours_err <= 2 * chain_err + 1e-6 * floor, (key, ours_err, chain_err)
+    torch.testing.assert_close(ours["rm"], ref["rm"], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ours["rv"], ref["rv"], rtol=1e-5, atol=1e-5)
+    assert int(ours["nbt"]) == int(ref["nbt"]) == 1
+
+
+def test_batch_norm_kernels_are_bit_equal_over_runs(cuda):
+    """The reductions merge each channel's partials in a fixed order,
+    whichever block finishes last: two runs give the same bits."""
+    from dfine_tpu_torch.ops.kernels import batch_norm as bn
+
+    leaves = _bn_leaves(cuda, (8, 256, 80, 80), torch.bfloat16, seed=1)
+    runs = [_bn_run(bn.batch_norm_train, *leaves, "silu") for _ in range(2)]
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
+    assert not bn._tickets[torch.cuda.current_device()].any()
+
+
+def test_batch_norm_kernels_in_a_cuda_graph(cuda):
+    """A forward and backward captured in a CUDA graph (after a warm-up) and
+    replayed three times equal three eager calls bit for bit, the running
+    statistics included; the graph holds the 4 launches, and every ticket
+    is 0 after the replays."""
+    from dfine_tpu_torch.ops.kernels import batch_norm as bn
+
+    x, dy, w, b, rm, rv = _bn_leaves(cuda, (8, 128, 40, 40), torch.bfloat16, seed=2)
+
+    def call(stats):
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+        y = bn.batch_norm_train(*leaves, *stats, 0.1, 1e-5, "relu")
+        return (y, *torch.autograd.grad(y, leaves, dy))
+
+    def fresh():
+        return rm.clone(), rv.clone(), torch.zeros((), dtype=torch.int64, device=cuda)
+
+    eager_stats = fresh()
+    eager = [call(eager_stats) for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(fresh())
+    torch.cuda.current_stream().wait_stream(side)
+    graph_stats, graph = fresh(), torch.cuda.CUDAGraph()
+    launches = bn.batch_norm_train.launches
+    with torch.cuda.graph(graph):
+        out = call(graph_stats)
+    assert bn.batch_norm_train.launches - launches == 4
+    for i in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(out, eager[i])), i
+    assert all(torch.equal(a, e) for a, e in zip(graph_stats, eager_stats))
+    assert int(graph_stats[2]) == 3
+    assert not bn._tickets[torch.cuda.current_device()].any()
+
+
+def test_batch_norm_kernels_refuse_what_they_do_not_take(cuda):
+    """fp16 activations, a layout other than NCHW-contiguous (channels-last,
+    transposed, strided), and parameters of the wrong size raise."""
+    from dfine_tpu_torch.ops.kernels.batch_norm import batch_norm_train
+
+    x, _, w, b, rm, rv = _bn_leaves(cuda, (2, 16, 8, 8), torch.bfloat16)
+    nbt = torch.zeros((), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        batch_norm_train(x.half(), w, b, rm, rv, nbt, 0.1, 1e-5)
+    for other in (x.contiguous(memory_format=torch.channels_last), x.transpose(2, 3),
+                  x[:, :, :, ::2]):
+        with pytest.raises(ValueError, match="NCHW-contiguous"):
+            batch_norm_train(other, w, b, rm, rv, nbt, 0.1, 1e-5)
+    with pytest.raises(ValueError, match="weight"):
+        batch_norm_train(x, w[:8], b, rm, rv, nbt, 0.1, 1e-5)
+
+
+def test_train_forward_takes_the_batch_norm_kernels(cuda):
+    """A train-mode forward and backward of the n det+seg model on the card
+    (bf16 autocast) takes the kernels at every BatchNorm: ``train.bn_kernel``
+    once each, no ``train.bn_plain``, 4 launches each."""
+    from dfine_tpu_torch.models.dfine import build_model
+    from dfine_tpu_torch.models.layers import BatchNorm2d
+    from dfine_tpu_torch.ops.kernels.batch_norm import batch_norm_train
+    from dfine_tpu_torch.utils import profiling
+
+    torch.manual_seed(0)
+    model = build_model("n", 5, True, device=cuda).train()
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in model.modules())
+    images = torch.rand(2, 3, 320, 320, device=cuda)
+    launches = batch_norm_train.launches
+    profiling.drain()
+    with profiling.tracing(True):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = model(images)
+        sum(v.float().sum() for v in out.values() if torch.is_tensor(v) and v.requires_grad
+            ).backward()
+    torch.cuda.synchronize()
+    counters = profiling.drain()["counters"]
+    assert counters.get("train.bn_kernel") == n_bn and "train.bn_plain" not in counters
+    assert batch_norm_train.launches - launches == 4 * n_bn

@@ -417,6 +417,6 @@ def test_loader_splits_stats_and_device_batch(dataset_root):
     batch = to_device(next(iter(train)), torch.device("cpu"))
     images = batch["images"]
     assert images.dtype == torch.uint8 and images.shape == (4, 3, 96, 128)
-    assert images.is_contiguous(memory_format=torch.channels_last)
+    assert images.is_contiguous()
     assert batch["targets"]["labels"].dtype == torch.int64
     assert batch["targets"]["masks"].shape == (4, 12, 24, 32)

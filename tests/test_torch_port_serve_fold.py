@@ -233,8 +233,6 @@ def test_serve_folds_counts_each_fold(case, tmp_path_factory):
     build and once at each load; the served model holds no BatchNorm that
     runs, every VGGBlock runs one conv, and every ReLU ConvBN without
     groups, and no other, is a ``FoldedConvBNReLU``."""
-    import torch.nn.functional as F
-
     from dfine_tpu_torch import TorchModel
     from dfine_tpu_torch.infer.fuse import FoldedBatchNorm2d, FoldedConvBNReLU, FoldedVGGBlock
     from dfine_tpu_torch.models.layers import BatchNorm2d, ConvBN, VGGBlock
@@ -253,7 +251,7 @@ def test_serve_folds_counts_each_fold(case, tmp_path_factory):
     assert all(type(m) is FoldedVGGBlock for m in mods if isinstance(m, VGGBlock))
     assert sum(isinstance(m, FoldedVGGBlock) for m in mods) == 24
     fused = [isinstance(m, FoldedConvBNReLU) for m in mods if isinstance(m, ConvBN)]
-    assert fused == [m.act is F.relu and m.conv.groups == 1 for m in mods if isinstance(m, ConvBN)]
+    assert fused == [m.act == "relu" and m.conv.groups == 1 for m in mods if isinstance(m, ConvBN)]
     assert sum(fused) == RELU_CONVS[case]
 
 
